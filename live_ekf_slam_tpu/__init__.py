@@ -1,4 +1,4 @@
-"""live_ekf_slam_tpu — a TPU-native (JAX/XLA/Pallas) online EKF-SLAM framework.
+"""live_ekf_slam_tpu — a JAX/XLA online EKF-SLAM framework for accelerators.
 
 A from-scratch rebuild of the capabilities of the ROS1 `live_ekf_slam` reference
 (kevin-robb/live_ekf_slam): a 2-D unicycle simulator with noisy commands and
@@ -10,8 +10,9 @@ Pure Pursuit control for closed-loop runs.
 Architecture: the reference's pub/sub-of-small-messages design dissolves into a
 single pure function ``step(carry, inputs) -> (carry', frame)`` run under
 ``jax.lax.scan`` and ``jax.vmap`` over thousands of independent worlds, with
-fixed-capacity masked state (no dynamic shapes), sharded across TPU chips with
-``jax.sharding``/``pjit``. See SURVEY.md at the repo root for the layer map of
+fixed-capacity masked state (no dynamic shapes), sharded across devices with
+``jax.sharding``. The EKF-SLAM Monte-Carlo rollout also runs as one CUDA
+kernel on NVIDIA GPUs (ops/fused_rollout.py). See SURVEY.md at the repo root for the layer map of
 the reference and the build plan.
 """
 

@@ -12,7 +12,7 @@ Launch files become named presets (`preset("filter_demo_live")`, ...), mirroring
 `base_pkg/launch/{sim_base,filter_demo_live,filter_demo_results_only,igvc1}
 .launch` and their positional-argv overrides.
 
-New, TPU-specific knobs (no reference equivalent):
+New knobs for batched on-device execution (no reference equivalent):
   * ``num_landmark_slots`` / ``num_meas_slots`` — fixed capacities replacing the
     reference's dynamically growing state (`conservativeResize`, ekf.cpp:146);
     XLA requires static shapes.
@@ -26,8 +26,6 @@ import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Mapping
-
-import yaml
 
 
 def _freeze(**kw):
@@ -96,9 +94,9 @@ class UKFConfig:
     # ukf.cpp:106-123); "chol" = pivot-clamped Cholesky factor — any S with
     # S S^T = P yields a valid unscented transform (same propagated mean and
     # covariance to 2nd order), and Cholesky is O(D^3/3) with no
-    # eigendecomposition, which the fused TPU kernel requires. The fused UKF
-    # rollout always uses "chol"; this flag lets the XLA path match it for
-    # parity testing.
+    # eigendecomposition, which a fused UKF kernel needs (the one that ran
+    # here is removed; ROADMAP.md lists its GPU rewrite). This flag lets the
+    # XLA path use the same factor.
     sigma_sqrt: str = "eigh"
 
 
@@ -106,7 +104,7 @@ class UKFConfig:
 class PoseGraphConfig:
     # params.yaml:59-66
     filter_to_compare: str = "naive"  # ekf_slam | iekf_slam | ukf_loc | ukf_slam | naive
-    implementation: str = "gn"  # TPU-native batched GN/LM (replaces "gtsam")
+    implementation: str = "gn"  # batched on-device GN/LM (replaces "gtsam")
     verbose: bool = False
     update_landmarks_after_adding: bool = False
     solve_graph_every_iteration: bool = True
@@ -142,7 +140,7 @@ class PoseGraphConfig:
     # secondary filter's node values (pose_graph.cpp:97-118, the reference
     # behavior); "chordal" rebuilds the initial iterate from the factors
     # alone (chain rotation averaging + linear position LS,
-    # models/posegraph.py chordal_init) — the TPU-native analog of the
+    # models/posegraph.py chordal_init) — the batched analog of the
     # reference's hard-disabled SE-Sync path (pose_graph.cpp:31-63), robust
     # to arbitrary node seeding.
     init: str = "secondary"
@@ -175,7 +173,7 @@ class PathPlanningConfig:
     lookahead_dist_init: float = 0.2
     lookahead_dist_max: float = 2.0
     astar_incl_diagonals: bool = True
-    # TPU-native knobs: fixed capacities/iteration bounds for on-device planning.
+    # Fixed capacities/iteration bounds for on-device planning.
     path_capacity: int = 512       # max path points held by pure pursuit
     astar_max_iters: int = 512     # min-plus relaxation sweeps bound (global A*)
     local_astar_max_iters: int = 96  # bound for the 1.8 m local plans
@@ -292,7 +290,7 @@ class Config:
     plotter: PlotterConfig = PlotterConfig()
     compat: CompatConfig = CompatConfig()
 
-    # ---- TPU-native capacities (static shapes) ----
+    # ---- fixed capacities (static shapes) ----
     # Landmark slot capacity >= num_landmarks actually in the world.
     num_landmark_slots: int = 20
     # Measurement slots per tick. The sim can see at most all landmarks at
@@ -302,7 +300,7 @@ class Config:
 
     # Test seam: scales the simulator's noise draws without touching the
     # filters' assumed V/W (0.0 gives a fully deterministic world, which makes
-    # the XLA and Pallas paths exactly comparable).
+    # the XLA and fused-rollout paths exactly comparable).
     sim_noise_scale: float = 1.0
 
     # Honest-mode refinement (core/noise.py): the EKF/UKF predict uses the
@@ -483,6 +481,8 @@ def config_from_dict(d: Mapping[str, Any], **overrides) -> Config:
 
 def load_config(path: str, **overrides) -> Config:
     """Load a reference-format params.yaml into a frozen Config."""
+    import yaml
+
     with open(path, "r") as f:
         d = yaml.safe_load(f) or {}
     return config_from_dict(d, **overrides)

@@ -6,7 +6,7 @@ The simulator draws uniform noise U(-V, V) on commands and clips the result
 directly as variances (filter.h:110-117) — a ~3x-in-std mis-calibration on
 measurements and worse on saturated commands. These helpers provide the TRUE
 moments; `Config.calibrated_motion` routes the EKF/UKF (XLA paths and the
-fused Pallas kernels) through them, mirroring the bias/variance correction
+fused rollout) through them, mirroring the bias/variance correction
 the pose graph's honest mode already gets from `_odom_moments`
 (models/posegraph.py).
 """
@@ -78,7 +78,7 @@ def motion_moments(cfg: Config, d_cmd, th_cmd):
 def calibrated_meas_vars(cfg: Config) -> tuple[float, float]:
     """True (range, bearing) measurement variances of U(-W, W): W^2/3.
 
-    Python floats (W is static config), usable inside Pallas kernels.
+    Python floats (W is static config), usable as kernel parameters.
     """
     return (
         cfg.sensing_noise.W_00 ** 2 / 3.0,

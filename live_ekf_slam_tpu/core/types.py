@@ -5,8 +5,9 @@ are discovered (ekf.cpp:146, ukf.cpp:171,357) and its pose graph one node per
 tick (pose_graph.cpp:222,247). XLA requires static shapes, so every container
 here is allocated at fixed capacity up front with an active-extent integer
 (``M``/``timestep``) and per-slot validity masks; a masked no-op update is an
-exact identity on the state. All containers are flax.struct PyTrees so they
-flow through jit/vmap/scan/pjit and shard trivially over a world batch axis.
+exact identity on the state. All containers are pytree dataclasses
+(core/pytree.py) so they flow through jit/vmap/scan and shard trivially over
+a world batch axis.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 from typing import Any
 
 import jax.numpy as jnp
-from flax import struct
+from live_ekf_slam_tpu.core import pytree as struct
 
 
 @struct.dataclass

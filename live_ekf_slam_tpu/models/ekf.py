@@ -1,4 +1,4 @@
-"""EKF-SLAM on a fixed-capacity padded state (TPU-native rebuild of ekf.cpp).
+"""EKF-SLAM on a fixed-capacity padded state (a rebuild of ekf.cpp).
 
 State layout matches the reference — (x, y, theta, lm_x1, lm_y1, ...) with
 covariance P — but at a static dim D = 3 + 2*N_cap. Where the C++ grows the
@@ -170,17 +170,15 @@ def _meas_slot_update(cfg: Config, carry, slot, x_committed, w_diag):
     nu = jnp.stack([r - dist_raw - w_r, nu_b])
 
     # The ONLY P-sized contraction in the slot body, spelled as a
-    # broadcast-multiply-reduce: exact fp32 on the VPU (a HIGHEST-precision
-    # dot_general would decompose each f32 operand into bf16 limbs and run
-    # multiple MXU passes — slower AND less exact for this skinny shape), and
-    # it fuses with the neighboring elementwise work. Everything else below
-    # is broadcasts, so the whole slot runs in a few passes over P instead of
-    # materializing a (D, D) intermediate per dot_general (the round-1
-    # spelling cost ~0.45 ms/slot at B=1024; see docs/BENCHMARKS.md).
+    # broadcast-multiply-reduce: exact fp32 elementwise work that fuses with
+    # its neighbors (a dot_general at default precision would round through
+    # reduced-precision matmul inputs for this skinny shape). Everything else
+    # below is broadcasts, so the whole slot runs in a few passes over P
+    # instead of materializing a (D, D) intermediate per dot_general.
     ph_t = (p[:, None, :] * h[None, :, :]).sum(-1)  # (D, 2) == P @ H^T
     ss = dot32(h, ph_t) + jnp.diag(w_diag)  # 2x2 innovation covariance
     det = ss[0, 0] * ss[1, 1] - ss[0, 1] * ss[1, 0]
-    # Same 1e-20 near-singular-S floor as the Pallas twin (fused_rollout.py)
+    # Same 1e-20 near-singular-S floor as the fused rollout (fused_rollout.py)
     # and the IEKF, so the XLA and kernel paths agree bitwise near singular
     # innovation covariances instead of diverging on denormal dets.
     det = jnp.where(jnp.abs(det) > 1e-20, det, 1.0)
@@ -195,8 +193,7 @@ def _meas_slot_update(cfg: Config, carry, slot, x_committed, w_diag):
     # writes symmetric blocks), so reusing ph_t avoids a second P-sized
     # contraction. NOTE the gain K itself still comes from P *columns*
     # (k = ph_t s_inv) — only the downdate reuses the transpose; the
-    # fp32-unstable spelling documented in docs/BENCHMARKS.md (K built from
-    # HP rows) is NOT what this does. Parity vs the float64 oracle and
+    # fp32-unstable spelling (K built from HP rows) is NOT what this does. Parity vs the float64 oracle and
     # T=1000 stability are test-covered.
     upd_delta = k[:, 0:1] * ph_t[None, :, 0] + k[:, 1:2] * ph_t[None, :, 1]
 

@@ -8,7 +8,7 @@ Design EKFs with Consistency Properties for Navigation and SLAM"). For the
 reference's exact problem — unicycle odometry (sim_node.py:222) + known-id
 range-bearing landmarks (sim_node.py:244-250) — this formulation collapses
 the standard EKF's trig-heavy Jacobians (ekf.cpp:47-54,117-126) into algebra
-that is strictly friendlier to the TPU's VPU *and* provably preserves the
+that is strictly friendlier to vector hardware *and* provably preserves the
 observability structure a standard EKF-SLAM violates (the classic spurious
 yaw-information gain):
 
@@ -196,7 +196,7 @@ def _meas_slot_update(cfg: Config, carry, slot, w_diag):
     ph_t = dot32(p, e_upd) - p[:, :2]  # (D, 2)
     ss = dot32(e_upd.T, ph_t) - ph_t[:2, :] + rtil  # 2x2
     det = ss[0, 0] * ss[1, 1] - ss[0, 1] * ss[1, 0]
-    # same small positive floor as the Pallas twin (ops/fused_rollout.py):
+    # same small positive floor as the fused rollout (ops/fused_rollout.py):
     # a near-singular S in fp32 must not produce an unbounded gain
     det = jnp.where(jnp.abs(det) > 1e-20, det, 1.0)
     s_inv = (

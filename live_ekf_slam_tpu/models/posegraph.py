@@ -633,7 +633,7 @@ def _jacobians(cfg: Config, s: PoseGraphState, poses, lms, meas_scale=1.0):
 def _meas_coeffs(cfg: Config, s: PoseGraphState, poses, lms, meas_scale):
     """Bearing-range Jacobian rows as 5 scalar (T, K) coefficient arrays
     (instead of a (T, K, 2, 5) tensor, which at batch 32 x T=1000 was a
-    256 MB intermediate that crashed the TPU worker).
+    256 MB intermediate per graph batch).
 
     rows (whitened): bearing = [ab, bb, cb, -ab, -bb],
                      range   = [ar, br,  0, -ar, -br]
@@ -791,7 +791,7 @@ def _assemble(cfg: Config, s: PoseGraphState, poses, lms, meas_scale=1.0):
 
 
 def chordal_init(cfg: Config, s: PoseGraphState):
-    """Chordal-style initialization from the FACTORS alone — the TPU-native
+    """Chordal-style initialization from the FACTORS alone — the batched
     analog of the reference's (hard-disabled) SE-Sync/chordal path
     (pose_graph.cpp:31-63): no dependence on the secondary filter's seeded
     node values, so the solve is robust to arbitrary/adversarial seeding.
@@ -1002,7 +1002,7 @@ def finalize(cfg: Config, s: PoseGraphState) -> PoseGraphState:
 
 # ----------------------------------------------------------------------
 # Fast bulk solver: block-coordinate GN with exact block-tridiagonal pose
-# solves (the TPU answer to "solve 1000+ graphs at once")
+# solves (the batched answer to "solve 1000+ graphs at once")
 # ----------------------------------------------------------------------
 
 def _inv3(a):

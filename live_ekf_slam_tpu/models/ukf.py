@@ -90,8 +90,8 @@ def _sqrt_spd_clamped(p_sym_scaled):
 
 
 def chol_clamped(p_sym_scaled, eps=1e-8, n_active=None):
-    """Pivot-clamped Cholesky — the fused TPU kernel's sigma-point sqrt
-    (UKFConfig.sigma_sqrt="chol"). Outer-product form; a pivot below eps is
+    """Pivot-clamped Cholesky — the sigma-point sqrt a fused UKF kernel
+    uses (UKFConfig.sigma_sqrt="chol"). Outer-product form; a pivot below eps is
     clamped and its column below zeroed. For PSD P this is benign (Schur:
     tiny pivot implies a tiny column, so nothing real is lost); for the
     genuinely indefinite P the reference's signed process noise produces
@@ -100,8 +100,7 @@ def chol_clamped(p_sym_scaled, eps=1e-8, n_active=None):
     ever sees fp-noise-level negatives. (A Gill–Murray pivot raise was tried
     instead of zeroing: bounding columns at beta=100 produced 100 m sigma
     offsets in the indefinite regime and diverged far worse.) Written as a
-    lax.scan of full-width masked rank-1 updates, mirroring the Pallas
-    kernel's loop."""
+    lax.scan of full-width masked rank-1 updates."""
     du = p_sym_scaled.shape[0]
     idx = jnp.arange(du)
     n_act = du if n_active is None else n_active

@@ -1,6 +1,6 @@
 """ctypes bindings to the native C++ host runtime (native/src/*.cpp).
 
-The compute path of this framework is JAX/Pallas on TPU; the host runtime
+The compute path of this framework is JAX on the accelerator; the host runtime
 around it — occupancy-grid raster preprocessing and interactive-path planning
 — is native C++ (the counterpart of the reference's C++ localization_pkg
 runtime). Loads `live_ekf_slam_tpu/native_lib/liblesnative.so` if built

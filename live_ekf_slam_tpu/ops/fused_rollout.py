@@ -1,56 +1,59 @@
-"""Fused sim+EKF-SLAM rollout as a single Pallas TPU kernel.
+"""Fused sim + EKF-SLAM / RI-EKF-SLAM Monte-Carlo rollout.
 
-This is the speed-of-light path for the headline benchmark. The XLA
-vmap(scan(step)) path (eval/runner.py) streams the full (B, D, D) covariance
-through HBM on every one of the ~20 sequential measurement-slot updates per
-tick; at 4096 worlds that is ~GBs of HBM traffic per simulated tick. Here the
-whole rollout runs inside one kernel with a **lane-major** layout — worlds on
-the 128-wide lane dimension, the (D<=48)-dim state on sublanes — so each
-world-block's covariance lives in VMEM for all T steps and HBM traffic is just
-the command stream in and the final state out.
+Two implementations of one algorithm, kept side by side:
 
-Key design points (vs the reference algorithms in sim_node.py:209-250 and
+* ``fused_ekf_rollout``: a CUDA kernel for Hopper (ops/ekf_rollout.cu),
+  called through ``jax.ffi``. One warp owns one world for all T ticks and
+  keeps its covariance in shared memory, so device memory carries only the
+  command and noise streams in and the final state out. It runs only on a
+  CUDA GPU; there is no interpret mode.
+* ``reference_ekf_rollout``: the same per-tick algebra in plain ``jnp``,
+  ``vmap`` over worlds and ``lax.scan`` over T. XLA compiles it for any
+  backend. The CPU tests hold it to the float64 oracle, and the GPU check
+  (chip_smoke.py) holds the kernel to it.
+
+The algebra (vs the reference algorithms in sim_node.py:209-250 and
 ekf.cpp:37-178):
 
 * landmark slot == landmark id. The EKF equations are equivariant under a
   permutation of the state, so pinning each landmark to the slot of its id
-  (instead of the reference's discovery order) gives bit-equivalent estimates
-  up to reordering — and makes EVERY index in the kernel static: no gathers,
-  no dynamic slicing, no one-hot contractions. Requires known landmark ids
-  (the default; data association falls back to the XLA path).
-* the Kalman gain MUST be formed from true covariance columns (P H^T) while
-  the downdate term uses true row combinations (H P): both single-sided
-  spellings were tried and diverge in fp32 — (P H^T)^T for HP flips the sign
-  of P's antisymmetric rounding residue (A' ~ A + KHA amplification), and
-  (H P)^T for the gain destabilizes the same residue dynamics from the other
-  side (empirically 100% NaN by T=1000). The mixed form keeps the residue
-  contractive, matching the reference's full-matrix recursion.
-* masked no-ops by zeroing the Kalman gain: a world whose measurement slot is
-  invalid gets K=0, making x += K nu and P -= K(HP) exact identities — no
-  select pass over the covariance.
-* H is never materialized: its rows have <=5 nonzeros at static indices, so
-  P H^T is a 4/5-term combination of static covariance columns, S reads 4/5
-  entries of those, and the covariance downdate is a single fused rank-2
-  pass — the only O(D^2 * B) work per landmark.
-* the predict F P F^T is two rank-1 row updates + two rank-1 column updates
-  (F = I + u e2^T with two nonzeros in u): O(D * B), not O(D^2 * B).
-* uniform sim noise U(-V, V) (sim_node.py:216-217,246-249) from the on-core
-  PRNG (pltpu.prng_random_bits); same distribution family as the reference,
-  independent stream.
-* angle wrap = theta - 2pi*rint(theta/2pi), exactly C remainder semantics.
+  (instead of the reference's discovery order) gives the same estimates up
+  to reordering, and every index is static. Requires known landmark ids
+  (the default; data association runs on the XLA path).
+* P is kept exactly symmetric (the kernel stores its lower triangle; the
+  reference mirrors the lower triangle after every write), so H P is read
+  from the same columns as P H^T. An asymmetric P lets the fp32 rounding
+  residue P - P^T grow through the update's one-sided product.
+* H is never materialized: its rows have <= 5 nonzeros at static indices,
+  so P H^T is a 4/5-term combination of covariance columns and the
+  downdate is one rank-2 pass.
+* the predict F P F^T is two rank-1 row and column updates
+  (F = I + u e2^T with two nonzeros in u): O(D), not O(D^2).
+* sim noise is injected: ``noise[b, t] = (u_d, u_h, u_r[0:N], u_b[0:N])``
+  in [-1, 1) (``rollout_noise``), scaled to U(-V, V) / U(-W, W) as in
+  sim_node.py:216-217,246-249. The closed-form sim (sim/streams.py) emits
+  the same layout, so a rollout can replay its world exactly.
 
-Compat quirks honored: noise V/W swap (via cfg.filter_noise()), stale-landmark
-linearization (ekf.cpp:115-129), unwrapped bearing innovation (ekf.cpp:131).
+Compat quirks honored: noise V/W swap (via cfg.filter_noise()),
+stale-landmark linearization (ekf.cpp:115-129), unwrapped bearing
+innovation (ekf.cpp:131). The RI-EKF (models/iekf.py; docs/FILTERS.md)
+ignores the two EKF linearization quirks.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+import numpy as np
 
 from live_ekf_slam_tpu.config import Config
 from live_ekf_slam_tpu.core.noise import (
@@ -58,737 +61,497 @@ from live_ekf_slam_tpu.core.noise import (
     motion_moments,
     use_calibrated,
 )
-from live_ekf_slam_tpu.ops.kernel_math import (
-    atan2 as _atan2,
-    round_up as _round_up,
-    uniform_pm1 as _uniform_pm1,
-    wrap as _wrap,
-)
+from live_ekf_slam_tpu.utils.geometry import wrap_angle
 
 # Initial pose covariance diag (ekf.cpp:11-18).
 _P0 = (0.01 * 0.01, 0.01 * 0.01, 0.005 * 0.005)
 
+FILTER_KINDS = ("ekf", "iekf")
 
-def _make_kernel(cfg: Config, n_lm: int, t_chunk: int, dp: int, bl: int,
-                 inject_noise: bool = False, profile_mode: str = "full",
-                 predicated: bool = True, emit_traj: bool = False,
-                 filter_kind: str = "ekf"):
-    """Builds the kernel body, specialized on the static config.
 
-    filter_kind="iekf" swaps the three filter-math sections (predict / update
-    / insertion) for the right-invariant EKF's (models/iekf.py equations;
-    docs/FILTERS.md derivation), keeping the whole sim + layout scaffold:
-      * predict: F = I, so P gains only var_d on a 2x2 block plus ONE full
-        rank-1 pass var_th * g_a g_a^T (the yaw-noise column couples into
-        every translation slot);
-      * update: constant H = [-I | 0 | +I] — P H^T / H P are 2-column /
-        2-row differences with NO per-slot trig or divisions; the Cartesian
-        innovation and Rtil need only row-level cos/sin of (theta, b); the
-        state correction is the exp retraction (rotate all translation
-        pairs);
-      * insertion: new covariance rows COPY the vehicle-position rows and
-        the corner adds Rtil — no heading coupling.
-    The EKF compat quirks (stale landmarks, unwrapped innovation) do not
-    apply to the invariant filter and are ignored."""
-    (v00f, v11f), (w00f, w11f) = cfg.filter_noise()  # filter noise (variances)
+def rollout_noise(key, batch: int, t_total: int, n_lm: int):
+    """(B, T, 2 + 2N) uniform draws in [-1, 1): the rollout's sim noise."""
+    return jax.random.uniform(
+        key, (batch, t_total, 2 + 2 * n_lm), jnp.float32, -1.0, 1.0
+    )
+
+
+class _Consts(NamedTuple):
+    """Static per-config constants; field order is the kernel's params[]
+    layout (ops/ekf_rollout.cu, enum Param)."""
+
+    v00s: float  # sim half-widths, scaled by sim_noise_scale
+    v11s: float
+    w00s: float
+    w11s: float
+    v00f: float  # filter variances
+    v11f: float
+    w00f: float
+    w11f: float
+    v_d: float   # filter noise means
+    v_th: float
+    w_r: float
+    w_b: float
+    d_max: float
+    th_max: float
+    r_max: float
+    fov_min: float
+    fov_max: float
+    x0: float
+    y0: float
+    yaw0: float
+    stale: float
+    wrap_innov: float
+    calibrated: float
+    iekf: float
+    v00: float   # unscaled process half-widths (clip-aware moments)
+    v11: float
+
+
+def _consts(cfg: Config, filter_kind: str) -> _Consts:
+    (v00f, v11f), (w00f, w11f) = cfg.filter_noise()
     calibrated = use_calibrated(cfg)
     if calibrated:
         # true U(-W, W) measurement variances (core/noise.py); the process
         # moments are per-tick (clip-aware) and computed inside the tick
         w00f, w11f = calibrated_meas_vars(cfg)
     nz = cfg.sim_noise_scale
-    v00s = cfg.process_noise.V_00 * nz  # sim noise half-widths (true values)
-    v11s = cfg.process_noise.V_11 * nz
-    w00s = cfg.sensing_noise.W_00 * nz
-    w11s = cfg.sensing_noise.W_11 * nz
-    v_d, v_th = cfg.process_noise.v_d, cfg.process_noise.v_th
-    w_r, w_b = cfg.sensing_noise.w_r, cfg.sensing_noise.w_b
-    d_max = cfg.constraints.commands.d_max
-    th_max = cfg.constraints.commands.th_max
-    r_max = cfg.constraints.vision.range_max
-    fov_min = cfg.constraints.vision.fov_min
-    fov_max = cfg.constraints.vision.fov_max
-    stale = cfg.compat.ekf_stale_landmarks
-    wrap_innov = not cfg.compat.ekf_unwrapped_innovation
+    pn, sn = cfg.process_noise, cfg.sensing_noise
+    com, vis = cfg.constraints.commands, cfg.constraints.vision
     x0, y0, yaw0 = cfg.init_pose
-
-    def kernel(seed_ref, cmds_ref, lms_ref, *rest):
-        if inject_noise:
-            noise_ref = rest[0]
-            rest = rest[1:]
-        traj_ref = None
-        if emit_traj:
-            *rest, traj_ref = rest
-        stats_ref, x_ref, p_ref, seen_ref = rest
-        blk = pl.program_id(0)
-        tc = pl.program_id(1)
-        if not inject_noise:
-            # distinct PRNG stream per (world-block, time-chunk); with
-            # injected noise the PRNG is unused (and unavailable in
-            # CPU interpret mode)
-            pltpu.prng_seed(seed_ref[0] + blk * 1000003 + tc * 7919)
-
-        # ---- first chunk of each block: init state in the output refs (the
-        # out blocks are revisited across time-chunks, staying in VMEM)
-        @pl.when(tc == 0)
-        def _init():
-            x_ref[:, :] = jnp.zeros((dp, bl), jnp.float32)
-            x_ref[0:1, :] = jnp.full((1, bl), x0, jnp.float32)
-            x_ref[1:2, :] = jnp.full((1, bl), y0, jnp.float32)
-            x_ref[2:3, :] = jnp.full((1, bl), yaw0, jnp.float32)
-            p_ref[:, :, :] = jnp.zeros((dp, dp, bl), jnp.float32)
-            for i, v in enumerate(_P0):
-                p_ref[i, i:i + 1, :] = jnp.full((1, bl), v, jnp.float32)
-            seen_ref[:, :] = jnp.zeros((n_lm, bl), jnp.float32)
-            # stats rows: 0 err_sum, 1 tx, 2 ty, 3 tth
-            stats_ref[:, :] = jnp.zeros((8, bl), jnp.float32)
-            stats_ref[1:2, :] = jnp.full((1, bl), x0, jnp.float32)
-            stats_ref[2:3, :] = jnp.full((1, bl), y0, jnp.float32)
-            stats_ref[3:4, :] = jnp.full((1, bl), yaw0, jnp.float32)
-
-        lx = lms_ref[:, 0, :]  # (N, BL) true landmark x
-        ly = lms_ref[:, 1, :]
-
-        def tick(t, _):
-            cmd = cmds_ref[t]  # (2, BL): fwd, ang
-            fwd = cmd[0:1, :]
-            ang = cmd[1:2, :]
-
-            if inject_noise:
-                u = noise_ref[t]
-            else:
-                bits = pltpu.prng_random_bits((2 * n_lm + 8, bl))
-                u = _uniform_pm1(bits)
-
-            # ---- truth propagation (sim_node.py:216-222)
-            tx = stats_ref[1:2, :]
-            ty = stats_ref[2:3, :]
-            tth = stats_ref[3:4, :]
-            d_n = jnp.clip(fwd + v00s * u[0:1, :], 0.0, d_max)
-            h_n = jnp.clip(ang + v11s * u[1:2, :], -th_max, th_max)
-            tx = tx + d_n * jnp.cos(tth)
-            ty = ty + d_n * jnp.sin(tth)
-            tth = tth + h_n  # deliberately unwrapped
-            stats_ref[1:2, :] = tx
-            stats_ref[2:3, :] = ty
-            stats_ref[3:4, :] = tth
-
-            # ---- sensing (sim_node.py:228-250), all landmarks at once
-            dxl = lx - tx
-            dyl = ly - ty
-            r_true = jnp.sqrt(dxl * dxl + dyl * dyl)
-            beta = _wrap(_atan2(dyl, dxl) - tth)
-            vis = (
-                (r_true <= r_max) & (beta > fov_min) & (beta < fov_max)
-            ).astype(jnp.float32)  # (N, BL)
-            rn_all = r_true + w00s * u[2: 2 + n_lm, :]
-            bn_all = beta + w11s * u[2 + n_lm: 2 + 2 * n_lm, :]
-
-            # ---- EKF predict (ekf.cpp:41-61) via rank-1 structure
-            if profile_mode == "sim":
-                ex = x_ref[0:1, :] - stats_ref[1:2, :]
-                ey = x_ref[1:2, :] - stats_ref[2:3, :]
-                e = jnp.sqrt(ex * ex + ey * ey)
-                stats_ref[0:1, :] = stats_ref[0:1, :] + e
-                stats_ref[4:5, :] = jnp.maximum(stats_ref[4:5, :], e)
-                return 0
-            th = x_ref[2:3, :]
-            c = jnp.cos(th)
-            s = jnp.sin(th)
-            if calibrated:
-                # clip-aware expected executed command + true clipped
-                # variances, per tick on (1, BL) lanes (core/noise.py)
-                eff_d, eff_th, var_d, var_th = motion_moments(cfg, fwd, ang)
-                jac_d = eff_d
-            else:
-                eff_d, eff_th = fwd + v_d, ang + v_th
-                var_d, var_th = v00f, v11f
-                jac_d = fwd  # F_x from the raw command (ekf.cpp:47-50)
-            if filter_kind == "iekf":
-                # invariant predict: F = I; the distance-noise column is
-                # (c, s, 0, ...) — a 2x2 block — and the yaw-noise column
-                # g_a = Ad_Xhat(1, (0, -d)) couples into every ACTIVE
-                # translation slot: one full rank-1 pass over P
-                # conservative Mosaic spelling: contiguous (1, BL) row
-                # slices + one sublane concatenate (no strided ref reads, no
-                # stack/reshape interleaves — neither has lowering precedent
-                # in this codebase)
-                xval = x_ref[:, :]
-                xv0 = xval[0:1, :]
-                xv1 = xval[1:2, :]
-                seen_now_p = seen_ref[:, :]  # (N, BL) active-slot mask
-                pieces = [
-                    jac_d * s + xv1,
-                    -jac_d * c - xv0,
-                    jnp.ones((1, bl), jnp.float32),
-                ]
-                for jj in range(n_lm):
-                    sj = seen_now_p[jj:jj + 1, :]
-                    pieces.append(sj * xval[4 + 2 * jj:5 + 2 * jj, :])
-                    pieces.append(-sj * xval[3 + 2 * jj:4 + 2 * jj, :])
-                if dp > 3 + 2 * n_lm:
-                    pieces.append(
-                        jnp.zeros((dp - 3 - 2 * n_lm, bl), jnp.float32)
-                    )
-                g_a = jnp.concatenate(pieces, axis=0)  # (DP, BL)
-                p_ref[:, :, :] = p_ref[:, :, :] + (
-                    var_th * g_a[:, None, :] * g_a[None, :, :]
-                )
-                p_ref[0, 0:1, :] = p_ref[0, 0:1, :] + c * c * var_d
-                p_ref[0, 1:2, :] = p_ref[0, 1:2, :] + s * c * var_d
-                p_ref[1, 0:1, :] = p_ref[1, 0:1, :] + s * c * var_d
-                p_ref[1, 1:2, :] = p_ref[1, 1:2, :] + s * s * var_d
-            else:
-                u0 = -jac_d * s  # F_x(0,2)
-                u1 = jac_d * c   # F_x(1,2)
-                row2 = p_ref[2, :, :]  # (DP, BL)
-                p_ref[0, :, :] = p_ref[0, :, :] + u0 * row2
-                p_ref[1, :, :] = p_ref[1, :, :] + u1 * row2
-                col2 = p_ref[:, 2:3, :]  # (DP, 1, BL) — updated rows included
-                p_ref[:, 0:1, :] = p_ref[:, 0:1, :] + col2 * u0[None]
-                p_ref[:, 1:2, :] = p_ref[:, 1:2, :] + col2 * u1[None]
-                # F_v V F_v^T on the top-left 3x3 (ekf.cpp:51-54)
-                p_ref[0, 0:1, :] = p_ref[0, 0:1, :] + c * c * var_d
-                p_ref[0, 1:2, :] = p_ref[0, 1:2, :] + s * c * var_d
-                p_ref[1, 0:1, :] = p_ref[1, 0:1, :] + s * c * var_d
-                p_ref[1, 1:2, :] = p_ref[1, 1:2, :] + s * s * var_d
-                p_ref[2, 2:3, :] = p_ref[2, 2:3, :] + var_th
-
-            x_ref[0:1, :] = x_ref[0:1, :] + eff_d * c
-            x_ref[1:2, :] = x_ref[1:2, :] + eff_d * s
-            x_ref[2:3, :] = _wrap(th + eff_th)
-
-            if stale:
-                x_committed = x_ref[:, :]  # value snapshot before updates
-
-            # ---- sequential per-landmark update/insertion (ekf.cpp:73-174)
-            # profile_mode: "full" | "downdate" (skip scalar algebra) |
-            # "nolm" (skip the loop) | "sim" (skip predict+loop) — used to
-            # attribute per-tick time between phases.
-            n_loop = 0 if profile_mode in ("nolm", "sim") else n_lm
-            # gates precomputed for the whole tick: landmark j's seen-state
-            # can only change at its own loop iteration, so tick-start `seen`
-            # is correct for every j. One vectorized lane-reduction yields all
-            # 2N scalar predicates instead of 2N cross-lane reductions.
-            seen_now = seen_ref[:, :]
-            m_u_all = vis * seen_now           # update gates (N, BL)
-            m_i_all = vis * (1.0 - seen_now)   # insertion gates
-            upd_any_vec = jnp.max(m_u_all, axis=1, keepdims=True)  # (N, 1)
-            ins_any_vec = jnp.max(m_i_all, axis=1, keepdims=True)
-            for j in range(n_loop):
-                li = 3 + 2 * j
-                visj = vis[j:j + 1, :]
-                m_u = m_u_all[j:j + 1, :]
-                m_i = m_i_all[j:j + 1, :]
-                rn = rn_all[j:j + 1, :]
-                bn = bn_all[j:j + 1, :]
-
-                # ------- landmark update (ekf.cpp:110-140), executed only
-                # when some world in the block updates this landmark (the
-                # scalar predicate costs one lane-reduction; with block-
-                # correlated visibility it skips most of the O(D^2) work)
-                upd_any = (upd_any_vec[j, 0] > 0.0) if predicated else True
-
-                def _update_iekf():
-                    """Invariant update (models/iekf.py): constant
-                    H = [-I | 0 | +I], Cartesian innovation, exp
-                    retraction. No per-slot trig or divisions beyond the
-                    row-level cos/sin and the 2x2 S inverse."""
-                    xv = x_ref[0:1, :]
-                    yv = x_ref[1:2, :]
-                    thv = x_ref[2:3, :]
-                    lmx = x_ref[li:li + 1, :]
-                    lmy = x_ref[li + 1:li + 2, :]
-                    cth = jnp.cos(thv)
-                    sth = jnp.sin(thv)
-                    cbn = jnp.cos(bn)
-                    sbn = jnp.sin(bn)
-                    c1 = cth * cbn - sth * sbn   # cos(th + b)
-                    s1 = sth * cbn + cth * sbn   # sin(th + b)
-                    yw0 = rn * c1
-                    yw1 = rn * s1
-                    # Rtil = Rhat Jpc W Jpc^T Rhat^T via the unit (c1, s1)
-                    rr2 = rn * rn
-                    rt00 = w00f * c1 * c1 + w11f * rr2 * s1 * s1
-                    rt01 = (w00f - w11f * rr2) * c1 * s1
-                    rt11 = w00f * s1 * s1 + w11f * rr2 * c1 * c1
-
-                    c0 = p_ref[:, 0, :]
-                    cv1 = p_ref[:, 1, :]
-                    cl0 = p_ref[:, li, :]
-                    cl1 = p_ref[:, li + 1, :]
-                    pr = cl0 - c0   # P H^T column 0 (DP, BL)
-                    pb = cl1 - cv1  # P H^T column 1
-                    s00 = pr[li:li + 1] - pr[0:1] + rt00
-                    s01 = pb[li:li + 1] - pb[0:1] + rt01
-                    s10 = pr[li + 1:li + 2] - pr[1:2] + rt01
-                    s11 = pb[li + 1:li + 2] - pb[1:2] + rt11
-                    det = s00 * s11 - s01 * s10
-                    det = jnp.where(jnp.abs(det) > 1e-20, det, 1.0)
-                    i00 = s11 / det
-                    i01 = -s01 / det
-                    i10 = -s10 / det
-                    i11 = s00 / det
-                    k0 = (pr * i00 + pb * i10) * m_u
-                    k1 = (pr * i01 + pb * i11) * m_u
-
-                    nu0 = yw0 - (lmx - xv)
-                    nu1 = yw1 - (lmy - yv)
-                    xi = k0 * nu0 + k1 * nu1  # (DP, BL)
-
-                    # exp retraction (models/iekf._retract): rotate every
-                    # translation pair by R(dth) and add V(dth) xi; masked
-                    # worlds have xi = 0 -> bitwise identity
-                    dth = xi[2:3]
-                    cd = jnp.cos(dth)
-                    sd = jnp.sin(dth)
-                    small = jnp.abs(dth) < 1e-6
-                    dsafe = jnp.where(small, 1.0, dth)
-                    va = jnp.where(small, 1.0 - dth * dth / 6.0, sd / dsafe)
-                    vb = jnp.where(small, 0.5 * dth, (1.0 - cd) / dsafe)
-                    nvx = va * xi[0:1] - vb * xi[1:2] + cd * xv - sd * yv
-                    nvy = vb * xi[0:1] + va * xi[1:2] + sd * xv + cd * yv
-                    xval = x_ref[:, :]
-                    x_ref[0:1, :] = nvx
-                    x_ref[1:2, :] = nvy
-                    x_ref[2:3, :] = _wrap(thv + dth)
-                    # per-pair rotation writes: contiguous (1, BL) row ops
-                    # only (see the predict branch's Mosaic-spelling note)
-                    for jj in range(n_lm):
-                        a0 = 3 + 2 * jj
-                        lxj = xval[a0:a0 + 1, :]
-                        lyj = xval[a0 + 1:a0 + 2, :]
-                        kxj = xi[a0:a0 + 1]
-                        kyj = xi[a0 + 1:a0 + 2]
-                        x_ref[a0:a0 + 1, :] = (
-                            va * kxj - vb * kyj + cd * lxj - sd * lyj
-                        )
-                        x_ref[a0 + 1:a0 + 2, :] = (
-                            vb * kxj + va * kyj + sd * lxj + cd * lyj
-                        )
-
-                    # P -= K (H P); H P honestly from P ROWS (same mixed
-                    # column/row discipline as the EKF kernel's fp32 note)
-                    r0 = p_ref[0, :, :]
-                    r1 = p_ref[1, :, :]
-                    rl0 = p_ref[li, :, :]
-                    rl1 = p_ref[li + 1, :, :]
-                    hp0 = rl0 - r0
-                    hp1 = rl1 - r1
-                    p_ref[:, :, :] = (
-                        p_ref[:, :, :]
-                        - k0[:, None, :] * hp0[None, :, :]
-                        - k1[:, None, :] * hp1[None, :, :]
-                    )
-
-                def _update():
-                    xv = x_ref[0:1, :]
-                    yv = x_ref[1:2, :]
-                    thv = x_ref[2:3, :]
-                    if stale:
-                        lmx = x_committed[li:li + 1, :]
-                        lmy = x_committed[li + 1:li + 2, :]
-                    else:
-                        lmx = x_ref[li:li + 1, :]
-                        lmy = x_ref[li + 1:li + 2, :]
-                    ddx = lmx - xv
-                    ddy = lmy - yv
-                    d2 = ddx * ddx + ddy * ddy
-                    d2 = jnp.maximum(d2, 1e-12)
-                    dist = jnp.sqrt(d2)
-                    a_r = ddx / dist   # h_r coefficient magnitude (x)
-                    b_r = ddy / dist
-                    a_b = ddy / d2     # h_b coefficients
-                    b_b = ddx / d2
-
-                    c0 = p_ref[:, 0, :]
-                    c1 = p_ref[:, 1, :]
-                    c2 = p_ref[:, 2, :]
-                    cl0 = p_ref[:, li, :]
-                    cl1 = p_ref[:, li + 1, :]
-                    # pr = P h_r^T, pb = P h_b^T (DP, BL)
-                    pr = (cl0 - c0) * a_r + (cl1 - c1) * b_r
-                    pb = (c0 - cl0) * a_b + (cl1 - c1) * b_b - c2
-
-                    # S = H (P H^T) + W, entries via the 4/5 nonzeros of H
-                    s00 = (
-                        -a_r * pr[0:1] - b_r * pr[1:2]
-                        + a_r * pr[li:li + 1] + b_r * pr[li + 1:li + 2]
-                    ) + w00f
-                    s01 = (
-                        -a_r * pb[0:1] - b_r * pb[1:2]
-                        + a_r * pb[li:li + 1] + b_r * pb[li + 1:li + 2]
-                    )
-                    s10 = (
-                        a_b * pr[0:1] - b_b * pr[1:2] - pr[2:3]
-                        - a_b * pr[li:li + 1] + b_b * pr[li + 1:li + 2]
-                    )
-                    s11 = (
-                        a_b * pb[0:1] - b_b * pb[1:2] - pb[2:3]
-                        - a_b * pb[li:li + 1] + b_b * pb[li + 1:li + 2]
-                    ) + w11f
-                    det = s00 * s11 - s01 * s10
-                    det = jnp.where(jnp.abs(det) > 1e-20, det, 1.0)
-                    i00 = s11 / det
-                    i01 = -s01 / det
-                    i10 = -s10 / det
-                    i11 = s00 / det
-
-                    # K = (P H^T) S^{-1}, gated to zero for non-updating worlds
-                    k0 = (pr * i00 + pb * i10) * m_u
-                    k1 = (pr * i01 + pb * i11) * m_u
-
-                    ang_lm = _wrap(_atan2(ddy, ddx) - thv)
-                    nu_r = rn - dist - w_r
-                    nu_b = bn - ang_lm - w_b
-                    if wrap_innov:
-                        nu_b = _wrap(nu_b)
-
-                    x_new = x_ref[:, :] + k0 * nu_r + k1 * nu_b
-                    x_ref[:, :] = x_new
-                    x_ref[2:3, :] = _wrap(x_new[2:3, :])
-                    # P -= K (H P), one fused rank-2 pass (the only O(D^2) op per
-                    # landmark). HP must be computed honestly as row combinations:
-                    # substituting (P H^T)^T flips the sign of the antisymmetric
-                    # rounding residue of P, turning the update's contraction of
-                    # that residue (A' ~ (I-KH) A) into exponential amplification
-                    # (A' ~ A + KHA) — observed as smooth fp32 divergence over a
-                    # few hundred ticks.
-                    r0 = p_ref[0, :, :]
-                    r1 = p_ref[1, :, :]
-                    r2 = p_ref[2, :, :]
-                    rl0 = p_ref[li, :, :]
-                    rl1 = p_ref[li + 1, :, :]
-                    hp0 = (rl0 - r0) * a_r + (rl1 - r1) * b_r  # (DP, BL)
-                    hp1 = (r0 - rl0) * a_b + (rl1 - r1) * b_b - r2
-                    p_ref[:, :, :] = (
-                        p_ref[:, :, :]
-                        - k0[:, None, :] * hp0[None, :, :]
-                        - k1[:, None, :] * hp1[None, :, :]
-                    )
-
-                pl.when(upd_any)(
-                    _update_iekf if filter_kind == "iekf" else _update
-                )
-
-                # ------- landmark insertion (ekf.cpp:141-173), predicated
-                ins_any = (ins_any_vec[j, 0] > 0.0) if predicated else True
-
-                def _insert_iekf():
-                    """Invariant insertion: eta_new = eta_p + Rhat n exactly
-                    — rows copy the vehicle-position rows, corner adds
-                    Rtil (models/iekf.py)."""
-                    xv = x_ref[0:1, :]
-                    yv = x_ref[1:2, :]
-                    thv = x_ref[2:3, :]
-                    cth = jnp.cos(thv)
-                    sth = jnp.sin(thv)
-                    cbn = jnp.cos(bn)
-                    sbn = jnp.sin(bn)
-                    c1 = cth * cbn - sth * sbn
-                    s1 = sth * cbn + cth * sbn
-                    sx = xv + rn * c1
-                    sy = yv + rn * s1
-                    ins = m_i > 0
-                    x_ref[li:li + 1, :] = jnp.where(ins, sx,
-                                                    x_ref[li:li + 1, :])
-                    x_ref[li + 1:li + 2, :] = jnp.where(
-                        ins, sy, x_ref[li + 1:li + 2, :]
-                    )
-                    rr2 = rn * rn
-                    rt00 = w00f * c1 * c1 + w11f * rr2 * s1 * s1
-                    rt01 = (w00f - w11f * rr2) * c1 * s1
-                    rt11 = w00f * s1 * s1 + w11f * rr2 * c1 * c1
-                    nr0 = p_ref[0, :, :]
-                    nr1 = p_ref[1, :, :]
-                    blk00 = p_ref[0, 0:1, :] + rt00
-                    blk01 = p_ref[0, 1:2, :] + rt01
-                    blk11 = p_ref[1, 1:2, :] + rt11
-                    p_ref[li, :, :] = jnp.where(ins, nr0, p_ref[li, :, :])
-                    p_ref[li + 1, :, :] = jnp.where(
-                        ins, nr1, p_ref[li + 1, :, :]
-                    )
-                    p_ref[:, li:li + 1, :] = jnp.where(
-                        ins[None], nr0[:, None, :], p_ref[:, li:li + 1, :]
-                    )
-                    p_ref[:, li + 1:li + 2, :] = jnp.where(
-                        ins[None], nr1[:, None, :],
-                        p_ref[:, li + 1:li + 2, :],
-                    )
-                    p_ref[li, li:li + 1, :] = jnp.where(
-                        ins, blk00, p_ref[li, li:li + 1, :]
-                    )
-                    p_ref[li, li + 1:li + 2, :] = jnp.where(
-                        ins, blk01, p_ref[li, li + 1:li + 2, :]
-                    )
-                    p_ref[li + 1, li:li + 1, :] = jnp.where(
-                        ins, blk01, p_ref[li + 1, li:li + 1, :]
-                    )
-                    p_ref[li + 1, li + 1:li + 2, :] = jnp.where(
-                        ins, blk11, p_ref[li + 1, li + 1:li + 2, :]
-                    )
-
-                def _insert():
-                    xv = x_ref[0:1, :]
-                    yv = x_ref[1:2, :]
-                    thv = x_ref[2:3, :]
-                    tb = thv + bn
-                    ct = jnp.cos(tb)
-                    st = jnp.sin(tb)
-                    sx = xv + rn * ct
-                    sy = yv + rn * st
-                    x_ref[li:li + 1, :] = jnp.where(m_i > 0, sx, x_ref[li:li + 1, :])
-                    x_ref[li + 1:li + 2, :] = jnp.where(
-                        m_i > 0, sy, x_ref[li + 1:li + 2, :]
-                    )
-                    ga = -rn * st  # G_x(0,2) = G_z(0,1)
-                    gb = rn * ct   # G_x(1,2) = G_z(1,1)
-                    # new rows = G_x P[0:3, :]
-                    nr0 = p_ref[0, :, :] + ga * p_ref[2, :, :]
-                    nr1 = p_ref[1, :, :] + gb * p_ref[2, :, :]
-                    # new 2x2 block = G_x P33 G_x^T + G_z W G_z^T (uses OLD P cols)
-                    p00 = p_ref[0, 0:1, :]
-                    p01 = p_ref[0, 1:2, :]
-                    p02 = p_ref[0, 2:3, :]
-                    p11 = p_ref[1, 1:2, :]
-                    p12 = p_ref[1, 2:3, :]
-                    p22 = p_ref[2, 2:3, :]
-                    blk00 = (
-                        p00 + 2.0 * ga * p02 + ga * ga * p22
-                        + ct * ct * w00f + ga * ga * w11f
-                    )
-                    blk01 = (
-                        p01 + gb * p02 + ga * p12 + ga * gb * p22
-                        + ct * st * w00f + ga * gb * w11f
-                    )
-                    blk11 = (
-                        p11 + 2.0 * gb * p12 + gb * gb * p22
-                        + st * st * w00f + gb * gb * w11f
-                    )
-                    ins = m_i > 0
-                    # write rows li, li+1 (masked), then matching columns, then
-                    # the 2x2 block
-                    p_ref[li, :, :] = jnp.where(ins, nr0, p_ref[li, :, :])
-                    p_ref[li + 1, :, :] = jnp.where(ins, nr1, p_ref[li + 1, :, :])
-                    p_ref[:, li:li + 1, :] = jnp.where(
-                        ins[None], nr0[:, None, :], p_ref[:, li:li + 1, :]
-                    )
-                    p_ref[:, li + 1:li + 2, :] = jnp.where(
-                        ins[None], nr1[:, None, :], p_ref[:, li + 1:li + 2, :]
-                    )
-                    p_ref[li, li:li + 1, :] = jnp.where(ins, blk00, p_ref[li, li:li + 1, :])
-                    p_ref[li, li + 1:li + 2, :] = jnp.where(
-                        ins, blk01, p_ref[li, li + 1:li + 2, :]
-                    )
-                    p_ref[li + 1, li:li + 1, :] = jnp.where(
-                        ins, blk01, p_ref[li + 1, li:li + 1, :]
-                    )
-                    p_ref[li + 1, li + 1:li + 2, :] = jnp.where(
-                        ins, blk11, p_ref[li + 1, li + 1:li + 2, :]
-                    )
-
-                pl.when(ins_any)(
-                    _insert_iekf if filter_kind == "iekf" else _insert
-                )
-                seen_ref[j:j + 1, :] = jnp.maximum(seen_now[j:j + 1, :], visj)
-
-            # ---- error metric (plotting_node.py:195-218), online; row 4
-            # tracks the running per-world max so the host can latch
-            # divergence on instantaneous error like the XLA path does
-            # (eval/runner.py guard), not on the run mean
-            ex = x_ref[0:1, :] - stats_ref[1:2, :]
-            ey = x_ref[1:2, :] - stats_ref[2:3, :]
-            e = jnp.sqrt(ex * ex + ey * ey)
-            stats_ref[0:1, :] = stats_ref[0:1, :] + e
-            stats_ref[4:5, :] = jnp.maximum(stats_ref[4:5, :], e)
-            if emit_traj:
-                # per-tick pose stream (rows: est x,y,th, true x,y,th, pad):
-                # feeds the pose-graph streams-assembly path
-                # (posegraph.assemble_streams) with the secondary's node seeds
-                traj_ref[t, 0:3, :] = x_ref[0:3, :]
-                traj_ref[t, 3:6, :] = stats_ref[1:4, :]
-                traj_ref[t, 6:8, :] = jnp.zeros((2, bl), jnp.float32)
-            return 0
-
-        jax.lax.fori_loop(0, t_chunk, tick, 0)
-
-    return kernel
+    return _Consts(
+        pn.V_00 * nz, pn.V_11 * nz, sn.W_00 * nz, sn.W_11 * nz,
+        v00f, v11f, w00f, w11f,
+        pn.v_d, pn.v_th, sn.w_r, sn.w_b,
+        com.d_max, com.th_max, vis.range_max, vis.fov_min, vis.fov_max,
+        x0, y0, yaw0,
+        float(cfg.compat.ekf_stale_landmarks),
+        float(not cfg.compat.ekf_unwrapped_innovation),
+        float(calibrated),
+        float(filter_kind == "iekf"),
+        pn.V_00, pn.V_11,
+    )
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "cfg", "block_worlds", "interpret", "profile_mode", "t_chunk",
-        "emit_traj", "filter_kind",
-    ),
-)
-def fused_ekf_rollout(
-    cfg: Config, landmarks, cmds, seed, block_worlds: int = 256,
-    interpret: bool = False, noise=None, profile_mode: str = "full",
-    t_chunk: int = 125, emit_traj: bool = False, filter_kind: str = "ekf",
-):
-    """Run the full T-step sim+EKF rollout for a world batch in one kernel.
-
-    landmarks: (B, N, 2) true maps; cmds: (B, T, 2) commanded odometry;
-    seed: () int32 PRNG seed. Returns a dict with per-world err_sum, final
-    true pose, final filter state (x (B, D), P (B, D, D)), and seen mask.
-
-    Grid = (world blocks, time chunks): the state lives in the revisited
-    output blocks (VMEM-resident across chunks) while the command stream is
-    pipelined in chunk-sized pieces, so VMEM holds O(P) not O(T).
-    """
+def _check_inputs(cfg: Config, landmarks, cmds, noise, filter_kind: str):
     if not cfg.constraints.measurements.landmark_id_is_known:
         raise ValueError("fused rollout requires known landmark ids")
-    b, n_lm, _ = landmarks.shape
-    t_total = cmds.shape[1]
-    bl = block_worlds
-    if b % bl != 0:
-        raise ValueError(f"batch {b} must be a multiple of block_worlds {bl}")
-    if t_total % t_chunk != 0:
-        # fall back to one chunk for awkward T (compile-time choice)
-        t_chunk = t_total
-    n_chunks = t_total // t_chunk
-    d = 3 + 2 * n_lm
-    dp = _round_up(d, 8)
-
-    cmds_t = jnp.transpose(cmds, (1, 2, 0)).astype(jnp.float32)  # (T, 2, B)
-    lms_t = jnp.transpose(landmarks, (1, 2, 0)).astype(jnp.float32)  # (N,2,B)
-    seed_arr = jnp.asarray([seed], jnp.int32)
-
-    if emit_traj and profile_mode != "full":
-        raise ValueError("emit_traj requires profile_mode='full'")
-    kernel = _make_kernel(
-        cfg, n_lm, t_chunk, dp, bl, filter_kind=filter_kind,
-        inject_noise=noise is not None, profile_mode=profile_mode,
-        # the section predicates are a pure skip-work optimization (masked
-        # gains already make skipped updates exact no-ops); the interpreter
-        # mishandles value-dependent pl.when, so run unpredicated there
-        predicated=not interpret,
-        emit_traj=emit_traj,
-    )
-    in_specs = [
-        pl.BlockSpec((t_chunk, 2, bl), lambda i, tc, *_: (tc, 0, i)),
-        pl.BlockSpec((n_lm, 2, bl), lambda i, tc, *_: (0, 0, i)),
-    ]
-    inputs = [seed_arr, cmds_t, lms_t]
-    if noise is not None:
-        # (T, 2N+8, B) pre-generated noise in [-1, 1) for replay/debugging
-        in_specs.append(
-            pl.BlockSpec(
-                (t_chunk, 2 * n_lm + 8, bl), lambda i, tc, *_: (tc, 0, i)
-            )
+    if filter_kind not in FILTER_KINDS:
+        raise ValueError(f"filter_kind must be one of {FILTER_KINDS}")
+    b, n_lm, two = landmarks.shape
+    if two != 2 or cmds.shape[0] != b or cmds.shape[2] != 2:
+        raise ValueError(
+            f"expected landmarks (B, N, 2) and cmds (B, T, 2); got "
+            f"{landmarks.shape}, {cmds.shape}"
         )
-        inputs.append(jnp.asarray(noise, jnp.float32))
-    out_specs = [
-        pl.BlockSpec((8, bl), lambda i, tc, *_: (0, i)),
-        pl.BlockSpec((dp, bl), lambda i, tc, *_: (0, i)),
-        pl.BlockSpec((dp, dp, bl), lambda i, tc, *_: (0, 0, i)),
-        pl.BlockSpec((n_lm, bl), lambda i, tc, *_: (0, i)),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((8, b), jnp.float32),
-        jax.ShapeDtypeStruct((dp, b), jnp.float32),
-        jax.ShapeDtypeStruct((dp, dp, b), jnp.float32),
-        jax.ShapeDtypeStruct((n_lm, b), jnp.float32),
-    ]
-    if emit_traj:
-        out_specs.append(
-            pl.BlockSpec((t_chunk, 8, bl), lambda i, tc, *_: (tc, 0, i))
-        )
-        out_shape.append(jax.ShapeDtypeStruct((t_total, 8, b), jnp.float32))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(b // bl, n_chunks),
-        in_specs=in_specs,
-        out_specs=out_specs,
-    )
-    outs = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(*inputs)
-    stats, x_out, p_out, seen = outs[:4]
+    want = (b, cmds.shape[1], 2 + 2 * n_lm)
+    if tuple(noise.shape) != want:
+        raise ValueError(f"noise must be (B, T, 2 + 2N) = {want}; got {noise.shape}")
 
+
+def _results(err_sum, err_max, true_pose, x, p, seen, traj=None):
     res = {
-        "err_sum": stats[0],
-        "err_max": stats[4],
-        "true_pose": jnp.transpose(stats[1:4], (1, 0)),
-        "x": jnp.transpose(x_out, (1, 0))[:, :d],
-        "P": jnp.transpose(p_out, (2, 0, 1))[:, :d, :d],
-        "seen": jnp.transpose(seen, (1, 0)) > 0.5,
+        "err_sum": err_sum,
+        "err_max": err_max,
+        "true_pose": true_pose,
+        "x": x,
+        "P": p,
+        "seen": seen > 0.5,
     }
-    if emit_traj:
-        # (T, 8, B) -> (B, T, 3) est / true pose streams
-        res["est_traj"] = jnp.transpose(outs[4][:, 0:3, :], (2, 0, 1))
-        res["true_traj"] = jnp.transpose(outs[4][:, 3:6, :], (2, 0, 1))
+    if traj is not None:
+        res["est_traj"] = traj[..., 0:3]
+        res["true_traj"] = traj[..., 3:6]
     return res
 
 
-def fused_ekf_rollout_sharded(
-    cfg: Config, landmarks, cmds, seed, mesh, block_worlds: int = 256,
-    interpret: bool = False, noise=None,
-):
-    """Multi-chip fused rollout: shard the world batch over a 1-D mesh.
+# --------------------------------------------------------------------------
+# plain-JAX reference
 
-    Each device runs the Pallas kernel on its own shard (worlds are fully
-    independent; there is no cross-chip communication inside the rollout —
-    reductions over the results ride the mesh afterwards). The PRNG seed is
-    decorrelated per device via the mesh axis index.
+
+def _ekf_update(k: _Consts, x, xs, p, li, rn, bn):
+    xv, yv, thv = x[0], x[1], x[2]
+    src = xs if k.stale else x
+    ddx = src[li] - xv
+    ddy = src[li + 1] - yv
+    d2 = jnp.maximum(ddx * ddx + ddy * ddy, 1e-12)
+    dist = jnp.sqrt(d2)
+    a_r, b_r = ddx / dist, ddy / dist
+    a_b, b_b = ddy / d2, ddx / d2
+    c0, c1, c2 = p[:, 0], p[:, 1], p[:, 2]
+    cl0, cl1 = p[:, li], p[:, li + 1]
+    pr = (cl0 - c0) * a_r + (cl1 - c1) * b_r
+    pb = (c0 - cl0) * a_b + (cl1 - c1) * b_b - c2
+    s00 = (-a_r * pr[0] - b_r * pr[1] + a_r * pr[li] + b_r * pr[li + 1]) + k.w00f
+    s01 = -a_r * pb[0] - b_r * pb[1] + a_r * pb[li] + b_r * pb[li + 1]
+    s10 = a_b * pr[0] - b_b * pr[1] - pr[2] - a_b * pr[li] + b_b * pr[li + 1]
+    s11 = (a_b * pb[0] - b_b * pb[1] - pb[2] - a_b * pb[li]
+           + b_b * pb[li + 1]) + k.w11f
+    k0, k1 = _gain(pr, pb, s00, s01, s10, s11)
+    ang_lm = wrap_angle(jnp.arctan2(ddy, ddx) - thv)
+    nu_r = rn - dist - k.w_r
+    nu_b = bn - ang_lm - k.w_b
+    if k.wrap_innov:
+        nu_b = wrap_angle(nu_b)
+    x_new = x + k0 * nu_r + k1 * nu_b
+    x_new = x_new.at[2].set(wrap_angle(x_new[2]))
+    return x_new, _downdate(p, k0, k1, pr, pb)
+
+
+def _iekf_update(k: _Consts, x, p, li, rn, bn):
+    xv, yv, thv = x[0], x[1], x[2]
+    c1, s1 = _bearing_dir(thv, bn)
+    rt00, rt01, rt11 = _rtil(k, rn, c1, s1)
+    pr = p[:, li] - p[:, 0]
+    pb = p[:, li + 1] - p[:, 1]
+    s00 = pr[li] - pr[0] + rt00
+    s01 = pb[li] - pb[0] + rt01
+    s10 = pr[li + 1] - pr[1] + rt01
+    s11 = pb[li + 1] - pb[1] + rt11
+    k0, k1 = _gain(pr, pb, s00, s01, s10, s11)
+    nu0 = rn * c1 - (x[li] - xv)
+    nu1 = rn * s1 - (x[li + 1] - yv)
+    xi = k0 * nu0 + k1 * nu1
+    # exp retraction (models/iekf._retract): rotate every translation pair
+    # by R(dth) and add V(dth) xi
+    dth = xi[2]
+    cd, sd = jnp.cos(dth), jnp.sin(dth)
+    small = jnp.abs(dth) < 1e-6
+    dsafe = jnp.where(small, 1.0, dth)
+    va = jnp.where(small, 1.0 - dth * dth / 6.0, sd / dsafe)
+    vb = jnp.where(small, 0.5 * dth, (1.0 - cd) / dsafe)
+    lxs, lys = x[3::2], x[4::2]
+    kx, ky = xi[3::2], xi[4::2]
+    new_lx = va * kx - vb * ky + cd * lxs - sd * lys
+    new_ly = vb * kx + va * ky + sd * lxs + cd * lys
+    pose = jnp.stack([
+        va * xi[0] - vb * xi[1] + cd * xv - sd * yv,
+        vb * xi[0] + va * xi[1] + sd * xv + cd * yv,
+        wrap_angle(thv + dth),
+    ])
+    x_new = jnp.concatenate(
+        [pose, jnp.stack([new_lx, new_ly], axis=1).reshape(-1)]
+    )
+    return x_new, _downdate(p, k0, k1, pr, pb)
+
+
+def _insert(k: _Consts, iekf: bool, x, p, li, rn, bn):
+    xv, yv, thv = x[0], x[1], x[2]
+    p00, p01, p11 = p[0, 0], p[0, 1], p[1, 1]
+    if iekf:
+        # eta_new = eta_p + Rhat n: new rows copy the vehicle-position rows
+        c1, s1 = _bearing_dir(thv, bn)
+        sx, sy = xv + rn * c1, yv + rn * s1
+        rt00, rt01, rt11 = _rtil(k, rn, c1, s1)
+        b00, b01, b11 = p00 + rt00, p01 + rt01, p11 + rt11
+        nr0, nr1 = p[0], p[1]
+    else:
+        tb = thv + bn
+        ct, st = jnp.cos(tb), jnp.sin(tb)
+        sx, sy = xv + rn * ct, yv + rn * st
+        ga, gb = -rn * st, rn * ct  # G_x(0,2) = G_z(0,1), G_x(1,2)
+        p02, p12, p22 = p[0, 2], p[1, 2], p[2, 2]
+        b00 = (p00 + 2.0 * ga * p02 + ga * ga * p22
+               + ct * ct * k.w00f + ga * ga * k.w11f)
+        b01 = (p01 + gb * p02 + ga * p12 + ga * gb * p22
+               + ct * st * k.w00f + ga * gb * k.w11f)
+        b11 = (p11 + 2.0 * gb * p12 + gb * gb * p22
+               + st * st * k.w00f + gb * gb * k.w11f)
+        nr0 = p[0] + ga * p[2]
+        nr1 = p[1] + gb * p[2]
+    x_new = x.at[li].set(sx).at[li + 1].set(sy)
+    p_new = (
+        p.at[li].set(nr0).at[li + 1].set(nr1)
+        .at[:, li].set(nr0).at[:, li + 1].set(nr1)
+        .at[li, li].set(b00).at[li, li + 1].set(b01)
+        .at[li + 1, li].set(b01).at[li + 1, li + 1].set(b11)
+    )
+    return x_new, p_new
+
+
+def _bearing_dir(thv, bn):
+    cth, sth = jnp.cos(thv), jnp.sin(thv)
+    cbn, sbn = jnp.cos(bn), jnp.sin(bn)
+    return cth * cbn - sth * sbn, sth * cbn + cth * sbn  # cos/sin(th + b)
+
+
+def _rtil(k: _Consts, rn, c1, s1):
+    """Rtil = Rhat Jpc W Jpc^T Rhat^T via the unit bearing (c1, s1)."""
+    rr2 = rn * rn
+    return (
+        k.w00f * c1 * c1 + k.w11f * rr2 * s1 * s1,
+        (k.w00f - k.w11f * rr2) * c1 * s1,
+        k.w00f * s1 * s1 + k.w11f * rr2 * c1 * c1,
+    )
+
+
+def _gain(pr, pb, s00, s01, s10, s11):
+    det = s00 * s11 - s01 * s10
+    det = jnp.where(jnp.abs(det) > 1e-20, det, 1.0)
+    i00, i01, i10, i11 = s11 / det, -s01 / det, -s10 / det, s00 / det
+    return pr * i00 + pb * i10, pr * i01 + pb * i11
+
+
+def _downdate(p, k0, k1, pr, pb):
+    """P -= K (H P) with H P read from the P H^T columns (P symmetric)."""
+    return _sym(p - k0[:, None] * pr[None, :] - k1[:, None] * pb[None, :])
+
+
+def _sym(p):
+    """Mirror the lower triangle: the kernel stores only that triangle."""
+    d = p.shape[0]
+    return jnp.where(np.tril(np.ones((d, d), bool)), p, p.T)
+
+
+def _reference_world(cfg: Config, filter_kind: str, emit_traj: bool,
+                     lms, cmds, noise):
+    k = _consts(cfg, filter_kind)
+    iekf = filter_kind == "iekf"
+    n_lm = lms.shape[0]
+    d = 3 + 2 * n_lm
+    x = jnp.zeros(d, jnp.float32).at[:3].set(
+        jnp.asarray([k.x0, k.y0, k.yaw0], jnp.float32))
+    p = jnp.zeros((d, d), jnp.float32).at[:3, :3].set(
+        jnp.diag(jnp.asarray(_P0, jnp.float32)))
+    truth = jnp.asarray([k.x0, k.y0, k.yaw0], jnp.float32)
+    carry0 = (x, p, jnp.zeros(n_lm, bool), truth,
+              jnp.float32(0.0), jnp.float32(0.0))
+
+    def tick(carry, inp):
+        x, p, seen, truth, err_sum, err_max = carry
+        cmd, u = inp
+        fwd, ang = cmd[0], cmd[1]
+        # ---- truth propagation (sim_node.py:216-222)
+        d_n = jnp.clip(fwd + k.v00s * u[0], 0.0, k.d_max)
+        h_n = jnp.clip(ang + k.v11s * u[1], -k.th_max, k.th_max)
+        tx = truth[0] + d_n * jnp.cos(truth[2])
+        ty = truth[1] + d_n * jnp.sin(truth[2])
+        tth = truth[2] + h_n  # deliberately unwrapped
+        # ---- sensing (sim_node.py:228-250)
+        dxl = lms[:, 0] - tx
+        dyl = lms[:, 1] - ty
+        r_true = jnp.sqrt(dxl * dxl + dyl * dyl)
+        beta = wrap_angle(jnp.arctan2(dyl, dxl) - tth)
+        vis = (r_true <= k.r_max) & (beta > k.fov_min) & (beta < k.fov_max)
+        rn_all = r_true + k.w00s * u[2:2 + n_lm]
+        bn_all = beta + k.w11s * u[2 + n_lm:2 + 2 * n_lm]
+        # ---- predict (ekf.cpp:41-61 / models/iekf.py)
+        th = x[2]
+        c, s = jnp.cos(th), jnp.sin(th)
+        if k.calibrated:
+            eff_d, eff_th, var_d, var_th = motion_moments(cfg, fwd, ang)
+            jac_d = eff_d
+        else:
+            eff_d, eff_th = fwd + k.v_d, ang + k.v_th
+            var_d, var_th = k.v00f, k.v11f
+            jac_d = fwd  # F_x from the raw command (ekf.cpp:47-50)
+        if iekf:
+            sf = seen.astype(jnp.float32)
+            g_lm = jnp.stack([sf * x[4::2], -sf * x[3::2]], axis=1)
+            g = jnp.concatenate([
+                jnp.stack([jac_d * s + x[1], -jac_d * c - x[0],
+                           jnp.float32(1.0)]),
+                g_lm.reshape(-1),
+            ])
+            p = p + var_th * g[:, None] * g[None, :]
+            p = (p.at[0, 0].add(c * c * var_d).at[0, 1].add(s * c * var_d)
+                 .at[1, 0].add(s * c * var_d).at[1, 1].add(s * s * var_d))
+        else:
+            u0, u1 = -jac_d * s, jac_d * c
+            row2 = p[2]
+            p = p.at[0].add(u0 * row2).at[1].add(u1 * row2)
+            col2 = p[:, 2]
+            p = p.at[:, 0].add(col2 * u0).at[:, 1].add(col2 * u1)
+            p = (p.at[0, 0].add(c * c * var_d).at[0, 1].add(s * c * var_d)
+                 .at[1, 0].add(s * c * var_d).at[1, 1].add(s * s * var_d)
+                 .at[2, 2].add(var_th))
+        p = _sym(p)
+        x = x.at[0].add(eff_d * c).at[1].add(eff_d * s)
+        x = x.at[2].set(wrap_angle(th + eff_th))
+        xs = x  # tick-start snapshot (stale-landmark quirk)
+        # ---- sequential per-landmark update / insertion (ekf.cpp:73-174)
+        for j in range(n_lm):
+            li = 3 + 2 * j
+            rn, bn = rn_all[j], bn_all[j]
+            m_u = vis[j] & seen[j]
+            m_i = vis[j] & ~seen[j]
+            if iekf:
+                xn, pn = _iekf_update(k, x, p, li, rn, bn)
+            else:
+                xn, pn = _ekf_update(k, x, xs, p, li, rn, bn)
+            x = jnp.where(m_u, xn, x)
+            p = jnp.where(m_u, pn, p)
+            xn, pn = _insert(k, iekf, x, p, li, rn, bn)
+            x = jnp.where(m_i, xn, x)
+            p = jnp.where(m_i, pn, p)
+            seen = seen.at[j].set(seen[j] | vis[j])
+        # ---- error metric (plotting_node.py:195-218), online
+        ex, ey = x[0] - tx, x[1] - ty
+        e = jnp.sqrt(ex * ex + ey * ey)
+        truth = jnp.stack([tx, ty, tth])
+        out = jnp.concatenate([x[:3], truth]) if emit_traj else None
+        return (x, p, seen, truth, err_sum + e,
+                jnp.maximum(err_max, e)), out
+
+    (x, p, seen, truth, err_sum, err_max), traj = jax.lax.scan(
+        tick, carry0, (cmds, noise)
+    )
+    return err_sum, err_max, truth, x, p, seen.astype(jnp.float32), traj
+
+
+@functools.partial(
+    jax.jit, static_argnames=("cfg", "emit_traj", "filter_kind")
+)
+def reference_ekf_rollout(cfg: Config, landmarks, cmds, noise,
+                          emit_traj: bool = False, filter_kind: str = "ekf"):
+    """Plain-JAX rollout: the kernel's algebra as vmap(scan(tick)).
+
+    landmarks: (B, N, 2) true maps; cmds: (B, T, 2) commanded odometry;
+    noise: (B, T, 2 + 2N) from ``rollout_noise``. Returns a dict with
+    per-world err_sum / err_max (running max of the instantaneous error),
+    final true pose, filter state x (B, D) and P (B, D, D), seen mask, and
+    with emit_traj the per-tick est_traj / true_traj (B, T, 3).
     """
-    import functools as _ft
+    _check_inputs(cfg, landmarks, cmds, noise, filter_kind)
+    one = functools.partial(_reference_world, cfg, filter_kind, emit_traj)
+    outs = jax.vmap(one)(
+        jnp.asarray(landmarks, jnp.float32),
+        jnp.asarray(cmds, jnp.float32),
+        jnp.asarray(noise, jnp.float32),
+    )
+    return _results(*outs)
 
+
+# --------------------------------------------------------------------------
+# CUDA kernel
+
+_SRC = Path(__file__).with_name("ekf_rollout.cu")
+# built into the checkout's build/ directory (listed in .gitignore)
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+_TARGETS = ("les_ekf_rollout", "les_ekf_rollout_traj")
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the fused rollout kernel is "
+            f"built from {_SRC.name} at first use"
+        )
+    return found
+
+
+def build_kernel_library() -> Path:
+    """Compile ops/ekf_rollout.cu once per source version; returns the .so.
+
+    The file name carries a hash of the source and flags, so an edited
+    kernel is rebuilt and a stale library is never loaded.
+    """
+    tag = hashlib.sha256(
+        _SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    lib = _BUILD_DIR / f"libekf_rollout_{tag}.so"
+    if lib.exists():
+        return lib
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(lib.name + f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-I", jax.ffi.include_dir(),
+           "-o", str(tmp), str(_SRC)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.cache
+def _register_kernel() -> None:
+    lib = ctypes.cdll.LoadLibrary(str(build_kernel_library()))
+    for name, sym in zip(_TARGETS, (lib.EkfRollout, lib.EkfRolloutTraj)):
+        jax.ffi.register_ffi_target(
+            name, jax.ffi.pycapsule(sym), platform="CUDA"
+        )
+
+
+def kernel_params(cfg: Config, filter_kind: str = "ekf") -> np.ndarray:
+    """The kernel's params[] vector (float32, _Consts field order)."""
+    return np.asarray(_consts(cfg, filter_kind), np.float32)
+
+
+@functools.partial(
+    jax.jit, static_argnames=("cfg", "emit_traj", "filter_kind")
+)
+def fused_ekf_rollout(cfg: Config, landmarks, cmds, noise,
+                      emit_traj: bool = False, filter_kind: str = "ekf"):
+    """The rollout as one CUDA kernel launch; same contract as
+    ``reference_ekf_rollout``. Raises off a CUDA GPU."""
+    _check_inputs(cfg, landmarks, cmds, noise, filter_kind)
+    platform = jax.default_backend()
+    if platform != "gpu":
+        raise RuntimeError(
+            "fused_ekf_rollout is a CUDA kernel and needs a GPU backend; "
+            f"this process runs on {platform!r} (reference_ekf_rollout is "
+            "the same algebra in plain JAX)"
+        )
+    _register_kernel()
+    b, n_lm, _ = landmarks.shape
+    t_total = cmds.shape[1]
+    d = 3 + 2 * n_lm
+    f32 = jnp.float32
+    out_types = [
+        jax.ShapeDtypeStruct((b, 5), f32),   # err_sum, err_max, true pose
+        jax.ShapeDtypeStruct((b, d), f32),
+        jax.ShapeDtypeStruct((b, d, d), f32),
+        jax.ShapeDtypeStruct((b, n_lm), f32),
+    ]
+    if emit_traj:
+        out_types.append(jax.ShapeDtypeStruct((b, t_total, 6), f32))
+    outs = jax.ffi.ffi_call(_TARGETS[int(emit_traj)], out_types)(
+        jnp.asarray(kernel_params(cfg, filter_kind)),
+        jnp.asarray(landmarks, f32),
+        jnp.asarray(cmds, f32),
+        jnp.asarray(noise, f32),
+    )
+    stats = outs[0]
+    return _results(stats[:, 0], stats[:, 1], stats[:, 2:5], *outs[1:])
+
+
+def fused_ekf_rollout_sharded(cfg: Config, landmarks, cmds, noise, mesh,
+                              rollout=fused_ekf_rollout, **kw):
+    """World-parallel rollout over a 1-D device mesh.
+
+    Each device runs ``rollout`` (the kernel by default, or
+    ``reference_ekf_rollout``) on its shard of worlds. Worlds are
+    independent and the noise is sharded with them, so the result equals a
+    one-device run on the same inputs; reductions over the results ride
+    the mesh afterwards.
+    """
     from jax.sharding import PartitionSpec as P
 
     axis = mesh.axis_names[0]
     n_dev = mesh.shape[axis]
-    b = landmarks.shape[0]
-    if b % n_dev != 0:
-        raise ValueError(f"batch {b} not divisible by mesh size {n_dev}")
+    if landmarks.shape[0] % n_dev != 0:
+        raise ValueError(
+            f"batch {landmarks.shape[0]} not divisible by mesh size {n_dev}"
+        )
+    keys = ["err_sum", "err_max", "true_pose", "x", "P", "seen"]
+    if kw.get("emit_traj"):
+        keys += ["est_traj", "true_traj"]
 
-    out_specs = {
-        "err_sum": P(axis),
-        "err_max": P(axis),
-        "true_pose": P(axis),
-        "x": P(axis),
-        "P": P(axis),
-        "seen": P(axis),
-    }
-    in_specs = [P(axis), P(axis, None)]
-    args = [landmarks, cmds]
-    if noise is not None:
-        in_specs.append(P(None, None, axis))
-        args.append(noise)
-
-    @_ft.partial(
-        jax.shard_map,
-        mesh=mesh,
-        in_specs=tuple(in_specs),
-        out_specs=out_specs,
-        # pallas_call's ShapeDtypeStruct outputs carry no varying-mesh-axis
-        # info; the per-device kernels are fully independent
+    @functools.partial(
+        jax.shard_map, mesh=mesh, in_specs=(P(axis),) * 3,
+        out_specs={k: P(axis) for k in keys},
+        # the FFI call's outputs carry no varying-mesh-axis info; the
+        # per-device rollouts are fully independent
         check_vma=False,
     )
-    def run(lms_shard, cmds_shard, *rest):
-        dev = jax.lax.axis_index(axis)
-        local_noise = rest[0] if rest else None
-        return fused_ekf_rollout(
-            cfg,
-            lms_shard,
-            cmds_shard,
-            seed + dev * jnp.int32(1000003),
-            block_worlds=block_worlds,
-            interpret=interpret,
-            noise=local_noise,
-        )
+    def run(lms_shard, cmds_shard, noise_shard):
+        return rollout(cfg, lms_shard, cmds_shard, noise_shard, **kw)
 
-    return run(*args)
-
-
-def fused_iekf_rollout(cfg: Config, landmarks, cmds, seed, **kw):
-    """Fused sim + right-invariant-EKF-SLAM rollout (models/iekf.py math in
-    the same lane-major single-kernel scaffold; see _make_kernel's
-    filter_kind notes). Same signature/returns as fused_ekf_rollout."""
-    return fused_ekf_rollout(
-        cfg, landmarks, cmds, seed, filter_kind="iekf", **kw
-    )
+    return run(landmarks, cmds, noise)

@@ -1,12 +1,13 @@
 """Precision-pinned matmul helpers.
 
-On TPU, the default matmul precision feeds the MXU with bfloat16 inputs
-(~3 decimal digits). That is the right trade for large neural-net matmuls but
-catastrophically wrong for Kalman covariance algebra: a 0.3% relative error on
-a covariance insertion block was observed with default precision, versus 6e-8
-at HIGHEST. Every accuracy-critical contraction in the filters and the
-pose-graph solver goes through these wrappers; bulk elementwise work (the vast
-majority of the hot path) runs on the VPU at true fp32 regardless.
+An H100 computes float32 matmuls in TF32 (a 10-bit mantissa, ~3 decimal
+digits) unless ``Precision.HIGHEST`` is asked for. That is the right trade for
+large neural-net matmuls but wrong for Kalman covariance algebra: with a
+reduced-precision default a 0.3% relative error on a covariance insertion
+block was observed, versus 6e-8 at HIGHEST. So every accuracy-critical
+contraction in the filters and the pose-graph solver goes through these
+wrappers; bulk elementwise work (the vast majority of the hot path) is true
+fp32 regardless.
 """
 
 from __future__ import annotations
@@ -18,12 +19,12 @@ HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def dot32(a, b):
-    """jnp.matmul at full fp32 MXU precision."""
+    """jnp.matmul at full fp32 precision."""
     return jnp.matmul(a, b, precision=HIGHEST)
 
 
 def einsum32(subscripts, *operands):
-    """jnp.einsum at full fp32 MXU precision."""
+    """jnp.einsum at full fp32 precision."""
     return jnp.einsum(subscripts, *operands, precision=HIGHEST)
 
 
@@ -32,10 +33,9 @@ def sel_cols(dim, li, k: int = 2):
 
     Replaces per-world dynamic_slice/dynamic_update_slice in the batched
     filter math: under vmap those lower to gather/scatter with batched start
-    indices, which are pathologically slow on TPU (the round-1 XLA path ran
-    at ~2 steps/s/world because of them). With one-hot selection every
-    dynamic-index read becomes a small batched matmul and every write becomes
-    masked outer products — plain fused VPU work. Out-of-range li yields zero
+    indices, which serialize badly on accelerators. With one-hot selection
+    every dynamic-index read becomes a small batched matmul and every write
+    becomes masked outer products — plain fused elementwise work. Out-of-range li yields zero
     columns (reads give 0, writes become no-ops), which callers guard anyway.
     """
     iota = jnp.arange(dim)

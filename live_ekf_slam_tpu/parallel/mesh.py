@@ -1,12 +1,12 @@
-"""Multi-chip scaling: world-batch data parallelism over a device mesh.
+"""Multi-device scaling: world-batch data parallelism over a device mesh.
 
-The reference is a single-robot, single-process system (SURVEY.md §2.4); the
-TPU framework's parallel axis is Monte-Carlo *worlds*: thousands of
-independent sim+filter instances vmapped per chip and sharded across chips
-with `jax.sharding.NamedSharding` over a 1-D mesh. Per-world state is tiny, so
-no tensor/pipeline parallelism is needed; the only cross-chip communication is
+The reference is a single-robot, single-process system (SURVEY.md §2.4); this
+framework's parallel axis is Monte-Carlo *worlds*: thousands of independent
+sim+filter instances vmapped per device and sharded across devices with
+`jax.sharding.NamedSharding` over a 1-D mesh. Per-world state is tiny, so no
+tensor/pipeline parallelism is needed; the only cross-device communication is
 the metric all-reduce (`psum` over the `worlds` axis), which XLA lowers to an
-ICI all-reduce.
+NCCL all-reduce on GPUs (all-to-all NVLink, so the mesh carries no topology).
 """
 
 from __future__ import annotations

@@ -4,9 +4,9 @@ The reference's A* (planning_pkg/src/astar.py) is an inherently sequential
 priority-queue search: sorted open list, Chebyshev heuristic, uniform step
 cost (diagonals too), and a collision-escape rule — cells in collision are
 traversable only from a parent in collision, with a +1000 priority penalty
-(astar.py:80-127, 99-101, 176-177). On TPU we re-express it as bounded
+(astar.py:80-127, 99-101, 176-177). On device we re-express it as bounded
 min-plus relaxation (Bellman iterations over the whole 150^2 grid with masked
-8-neighbor shifts): every sweep is a handful of vectorized ops on the VPU,
+8-neighbor shifts): every sweep is a handful of vectorized ops,
 `vmap`s over worlds, and converges in <= path-length sweeps. The result has
 the same step-count cost as the reference's A* path whenever a free-only path
 exists (tie-breaks may differ; the heuristic only affects expansion order).

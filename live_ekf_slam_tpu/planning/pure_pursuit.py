@@ -19,7 +19,7 @@ import math
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from live_ekf_slam_tpu.core import pytree as struct
 
 from live_ekf_slam_tpu.config import Config
 from live_ekf_slam_tpu.utils.geometry import wrap_angle

@@ -37,9 +37,9 @@ def sim_streams(cfg: Config, landmarks, n_active, cmds, key):
       r:          (T, N)  noisy ranges to every landmark slot
       b:          (T, N)  noisy bearings
       vis:        (T, N)  visibility mask (range + FOV cull + active slots)
-      noise_u:    (T, 2N + 8) the raw U(-1, 1) draws in the fused kernels'
-                  injection layout (rows: d, hdg, r*N, b*N, pad), so a Pallas
-                  rollout with noise=noise_u sees the same world.
+      noise_u:    (T, 2 + 2N) the raw U(-1, 1) draws in the fused
+                  rollout's noise layout (d, hdg, r*N, b*N), so a rollout
+                  fed noise_u sees the same world.
     """
     t_total = cmds.shape[0]
     n_cap = landmarks.shape[0]
@@ -90,9 +90,7 @@ def sim_streams(cfg: Config, landmarks, n_active, cmds, key):
     b_noisy = beta + cfg.sensing_noise.W_11 * scale * u_sense[:, 1, :]
 
     noise_u = jnp.concatenate(
-        [u_move, u_sense[:, 0, :], u_sense[:, 1, :],
-         jnp.zeros((t_total, 6), jnp.float32)],
-        axis=1,
+        [u_move, u_sense[:, 0, :], u_sense[:, 1, :]], axis=1
     )
     return {
         "poses_true": poses_true,

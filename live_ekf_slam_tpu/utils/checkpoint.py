@@ -1,6 +1,6 @@
 """Checkpoint / resume of full batched run state.
 
-The reference has no checkpointing (SURVEY.md §5); the TPU framework saves and
+The reference has no checkpointing (SURVEY.md §5); this framework saves and
 restores the entire sim+filter PyTree at any tick so long Monte-Carlo runs can
 resume (npz by default; orbax if available for sharded arrays).
 """

@@ -4,9 +4,6 @@ the north-star observable is steps/sec/world plus per-phase attribution).
 - `trace(path)`: context manager around any jitted region, writes a
   TensorBoard-compatible trace via jax.profiler.
 - `Throughput`: simple steps/sec/world counter for run loops.
-- The fused kernel's `profile_mode` ("sim" | "nolm" | "full") attributes
-  per-tick time between sim, predict, and the landmark loop
-  (ops/fused_rollout.py).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Async viewer feed over the native frame ring buffer.
 
 The reference plotter decouples from the filter nodes by ROS queues and keeps
-only the latest message (plotting_node.py:233-252). TPU-native equivalent:
+only the latest message (plotting_node.py:233-252). The equivalent here:
 the device-stepping loop runs in a producer thread and pushes fixed-layout
 frame snapshots into `native.FrameRing` (C++, overwrite-oldest); the
 matplotlib main thread pops the NEWEST frame at its own cadence. Rendering

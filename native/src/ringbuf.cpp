@@ -2,7 +2,7 @@
 //
 // The reference plotter decouples itself from the filter nodes by message
 // queues and keeps only the latest state (copy-and-null of the incoming
-// globals, plotting_node.py:233-252). The TPU-native equivalent: a device
+// globals, plotting_node.py:233-252). The equivalent here: a device
 // readback thread pushes flattened frame snapshots into this fixed-capacity
 // native ring while the matplotlib render loop pops the NEWEST frame at its
 // own rate — rendering never blocks device work and device work never waits

@@ -1,6 +1,6 @@
 // Multi-threaded host job scheduler for Monte-Carlo runs.
 //
-// The TPU owns the sim+filter compute; the host runtime around it still has
+// The accelerator owns the sim+filter compute; the host runtime around it has
 // embarrassingly-parallel work per world — planning-oracle sweeps, CSV/metric
 // post-processing, map preprocessing. The reference runs everything single-
 // threaded per ROS node; here a shared thread pool executes host jobs across

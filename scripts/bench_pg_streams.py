@@ -4,8 +4,7 @@ assembly, and the bulk solve separately) at Monte-Carlo scale.
 Usage: python scripts/bench_pg_streams.py [--worlds 1024] [--t 1000]
        [--secondary naive|ekf_slam] [--noise high|low]
 
-Prints a JSON line with accumulation steps/s/world (the metric VERDICT r2
-tracked at ~1.8k on the per-tick XLA path) and solve wall time.
+Prints a JSON line with accumulation steps/s/world and solve wall time.
 """
 
 from __future__ import annotations
@@ -31,7 +30,6 @@ def main():
     import dataclasses
 
     import jax
-    import jax.numpy as jnp
 
     from live_ekf_slam_tpu.config import Config
     from live_ekf_slam_tpu.eval import runner as R
@@ -85,15 +83,10 @@ def main():
     if args.secondary == "ekf_slam":
         from live_ekf_slam_tpu.ops.fused_rollout import fused_ekf_rollout
 
-        nz = jnp.transpose(noise_u, (1, 2, 0))
-        out = fused_ekf_rollout(
-            cfg, lms, cmds, 0, block_worlds=256, noise=nz, emit_traj=True
-        )
+        out = fused_ekf_rollout(cfg, lms, cmds, noise_u, emit_traj=True)
         jax.block_until_ready(out["est_traj"])  # compile
         t0 = time.perf_counter()
-        out = fused_ekf_rollout(
-            cfg, lms, cmds, 0, block_worlds=256, noise=nz, emit_traj=True
-        )
+        out = fused_ekf_rollout(cfg, lms, cmds, noise_u, emit_traj=True)
         jax.block_until_ready(out["est_traj"])
         ekf_s = time.perf_counter() - t0
 

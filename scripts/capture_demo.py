@@ -1,4 +1,4 @@
-"""Capture demo imagery (VERDICT r3 missing #3): drive the live viewer
+"""Capture demo imagery: drive the live viewer
 headless through real rollouts and save GIF + final PNG per demo into
 docs/images/, mirroring the reference README's recorded demos
 (/root/reference/images/, README.md:18-28).

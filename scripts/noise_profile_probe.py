@@ -1,5 +1,5 @@
 """Probe candidate reconstructions of the reference's unrecorded high-noise
-profile (VERDICT r3 #4 follow-up).
+profile.
 
 The naive-only calibration in scripts/reference_parity.py pins ONE scalar
 (equal scaling of V_00 and V_11) but the published data constrains more: the

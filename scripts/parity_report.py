@@ -199,7 +199,7 @@ def main():
       "the reference ships: the per-config means of its 8 published run "
       "directories (`base_pkg/data/<config>/*.csv`, metric defined at "
       "`plotting_node.py:195-218`). Every repo number below was measured "
-      "on the TPU chip at T=1000 with `CompatConfig.all_on()` (the "
+      "at T=1000 with `CompatConfig.all_on()` (the "
       "reference's V/W swap, weak (1.3, 1.3, 1.2) prior, and all quirk "
       "flags) under the reconstructed noise profile.\n")
     if len(family) > 1:
@@ -773,12 +773,9 @@ def main():
       "count; the dial that actually closes the gap is the W dial's "
       "between-factor reweighting above (best joint fit at the adopted "
       f"W ×{a_w}).\n")
-    w("Wall-time note: each one-time PGS config is ~8–9 min on one chip at "
-      "256 worlds; the reference's equivalent is ~10 sequential rospy "
-      "runs. C rows: `scripts/reference_parity.py --profile ang`; D rows: "
-      "`--profile ang --scale-w`; interior W ×k rows: `--profile ang "
-      "--w-scale k` (resume-safe; see `scripts/tpu_queue_r4i.sh`, "
-      "`scripts/tpu_queue_r5b.sh`).\n")
+    w("Commands: C rows: `scripts/reference_parity.py --profile ang`; D "
+      "rows: `--profile ang --scale-w`; interior W ×k rows: `--profile ang "
+      "--w-scale k` (resume-safe).\n")
 
     with open(args.out, "w") as f:
         f.write("\n".join(lines))

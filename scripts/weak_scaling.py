@@ -8,16 +8,19 @@ all-reduce, so ideal weak scaling is flat time / linear aggregate throughput.
 Two modes:
   * virtual (default): forces an n-device CPU mesh per measurement in a fresh
     subprocess (XLA_FLAGS=--xla_force_host_platform_device_count=n). This
-    validates the sharded program end-to-end without TPU hardware. NOTE the
+    validates the sharded program end-to-end without accelerators. NOTE the
     virtual devices SHARE one host's cores, so wall-clock grows with total
     work — the honest signal here is that sharded execution works and that
     per-device work is independent, not the absolute scaling curve.
-  * --real: uses the actual devices of the current backend (run on a TPU pod
-    slice for true ICI numbers; ready to run as-is on v5e-8 etc.).
+  * --real: uses the first n actual devices of the current backend (e.g. 1,
+    2 and 4 GPUs of one host, NCCL all-reduce over NVLink).
+
+Each device count runs in its own child process, one after the other, so at
+most one process holds the accelerators at a time.
 
 Usage:
   python scripts/weak_scaling.py --devices 1 2 4 8 --worlds-per-device 64 \
-      --t 100 [--real] [--out docs/weak_scaling.json]
+      --t 100 [--real] [--out FILE]
 """
 
 from __future__ import annotations
@@ -42,9 +45,6 @@ def child(n: int, wpd: int, t: int, real: bool) -> None:
             ).strip()
         os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
-
-    if not real:
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np
 
@@ -116,7 +116,7 @@ def main() -> None:
     ap.add_argument("--worlds-per-device", type=int, default=64)
     ap.add_argument("--t", type=int, default=100)
     ap.add_argument("--real", action="store_true",
-                    help="use the current backend's real devices (TPU pod)")
+                    help="use the current backend's real devices")
     ap.add_argument("--out", default=None)
     ap.add_argument("--single", type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()

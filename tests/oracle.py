@@ -2,7 +2,7 @@
 
 These re-derive the C++ filter math of the reference (ekf.cpp / ukf.cpp /
 filter.h) directly from the equations, including its quirks, to serve as golden
-implementations for parity tests of the padded fixed-capacity TPU filters.
+implementations for parity tests of the padded fixed-capacity filters.
 They intentionally mirror behavior, not code structure.
 """
 

@@ -7,16 +7,13 @@ reference's half-width-as-variance convention (filter.h:110-117). Tests:
 
 1. motion_moments matches Monte-Carlo moments of the simulator's actual
    clip(cmd + U(-V, V)) draw (sim_node.py:216-220 semantics).
-2. fused Pallas kernels (interpret mode, injected noise) match the XLA
-   filters under calibrated_motion — same parity harness as the default
-   mode's tests.
+2. the fused rollout (injected noise) matches the XLA EKF under
+   calibrated_motion — same parity harness as the default mode's tests.
 3. end-to-end: the calibrated EKF beats the default EKF on the reference's
    own benchmark protocol (random maps, TSP trajectories, high noise), and
    its NEES is closer to the ideal dim=2 than the wildly-overconservative
    default.
 """
-
-import math
 
 import numpy as np
 import jax
@@ -25,12 +22,9 @@ import pytest
 
 from live_ekf_slam_tpu.config import Config
 from live_ekf_slam_tpu.core import noise as core_noise
-from live_ekf_slam_tpu.core.types import Measurements
 from live_ekf_slam_tpu.models import ekf
-from live_ekf_slam_tpu.ops.fused_rollout import fused_ekf_rollout
-from live_ekf_slam_tpu.ops.fused_ukf import fused_ukf_rollout
 
-from test_fused_ukf import B, N, T, _setup, _sim_measurements, _xla_run
+from test_fused_rollout import B, _setup, xla_filter_run
 
 
 def test_motion_moments_match_simulator_monte_carlo():
@@ -64,42 +58,17 @@ def test_motion_moments_match_simulator_monte_carlo():
         assert abs(var_th - th_exec.var()) < max(3e-7, 0.02 * th_exec.var())
 
 
-def _xla_run_ekf(cfg, lms_w, cmds_w, noise_w):
-    """XLA EKF filter driven by the same replayed sim as the fused kernel."""
-    poses, measlists = _sim_measurements(cfg, lms_w, cmds_w, noise_w)
-    s = ekf.init(cfg)
-    step = jax.jit(lambda s, cmd, m: ekf.update(cfg, s, cmd, m))
-    err_sum = 0.0
-    n_slots = cfg.num_meas_slots
-    for t in range(T):
-        ids = np.full(n_slots, -1, np.int32)
-        r = np.zeros(n_slots, np.float32)
-        b = np.zeros(n_slots, np.float32)
-        valid = np.zeros(n_slots, bool)
-        for k, (mid, mr, mb) in enumerate(measlists[t]):
-            ids[k], r[k], b[k], valid[k] = mid, mr, mb, True
-        m = Measurements(
-            ids=jnp.asarray(ids), r=jnp.asarray(r), b=jnp.asarray(b),
-            valid=jnp.asarray(valid), overflow=jnp.asarray(False),
-        )
-        s = step(s, jnp.asarray(cmds_w[t], jnp.float32), m)
-        xs = np.asarray(s.x)
-        err_sum += math.hypot(xs[0] - poses[t][0], xs[1] - poses[t][1])
-    return s, poses[-1], err_sum
-
-
-def test_fused_ekf_calibrated_matches_xla():
+def test_fused_ekf_calibrated_matches_xla(rollout):
+    """The fused rollout (reference everywhere, kernel on a GPU) against the
+    XLA EKF driven by the same replayed sim, under calibrated_motion."""
     cfg, lms, cmds, noise = _setup()
     cfg = cfg.replace(calibrated_motion=True)
-    out = fused_ekf_rollout(
-        cfg, jnp.asarray(lms), jnp.asarray(cmds), 0,
-        block_worlds=B, interpret=True, noise=jnp.asarray(noise),
-    )
+    out = rollout(cfg, jnp.asarray(lms), jnp.asarray(cmds), jnp.asarray(noise))
     xs = np.asarray(out["x"])
     errs = np.asarray(out["err_sum"])
     seen = np.asarray(out["seen"])
     for w in range(B):
-        s, pose, err_sum = _xla_run_ekf(cfg, lms[w], cmds[w], noise[:, :, w])
+        s, pose, err_sum = xla_filter_run(cfg, ekf, lms[w], cmds[w], noise[w])
         assert abs(errs[w] - err_sum) < 2e-3 * max(err_sum, 1.0)
         sx = np.asarray(s.x)
         np.testing.assert_allclose(xs[w][:3], sx[:3], atol=5e-4)
@@ -111,23 +80,6 @@ def test_fused_ekf_calibrated_matches_xla():
                 sx[3 + 2 * k: 5 + 2 * k],
                 atol=5e-4,
             )
-
-
-def test_fused_ukf_calibrated_matches_xla():
-    cfg, lms, cmds, noise = _setup()
-    cfg = cfg.replace(
-        calibrated_motion=True, ukf=cfg.ukf.__class__(sigma_sqrt="chol")
-    )
-    out = fused_ukf_rollout(
-        cfg, jnp.asarray(lms), jnp.asarray(cmds), 0, slam=True,
-        block_worlds=B, interpret=True, noise=jnp.asarray(noise),
-    )
-    xs = np.asarray(out["x"])
-    errs = np.asarray(out["err_sum"])
-    for w in range(B):
-        s, pose, err_sum = _xla_run(cfg, lms[w], cmds[w], noise[:, :, w], True)
-        assert abs(errs[w] - err_sum) < 2e-3 * max(err_sum, 1.0)
-        np.testing.assert_allclose(xs[w][:4], np.asarray(s.x)[:4], atol=5e-4)
 
 
 def test_calibrated_ekf_beats_default_at_reference_protocol():

@@ -542,11 +542,11 @@ def test_streams_path_matches_scan_path_naive():
 
 
 def test_streams_path_matches_scan_path_ekf():
-    """EKF-secondary streams path: the fused kernel consumes the SAME
+    """EKF-secondary streams path: the fused rollout consumes the SAME
     injected noise draws the closed-form sim used, so its per-tick pose
-    stream seeds the same graph the scan path builds (kernel parity with the
-    XLA EKF is covered by test_fused_rollout; tolerance covers the kernel's
-    polynomial atan2)."""
+    stream seeds the same graph the scan path builds (rollout parity with
+    the XLA EKF, and the kernel's with the reference, is covered by
+    test_fused_rollout)."""
     import dataclasses
 
     from live_ekf_slam_tpu.eval.runner import run_monte_carlo_pg_streams
@@ -567,7 +567,7 @@ def test_streams_path_matches_scan_path_ekf():
         cfg, key, batch=2, seed=5, collect="poses"
     )
     res_str, _, _ = run_monte_carlo_pg_streams(
-        cfg, key, batch=2, seed=5, block_worlds=2
+        cfg, key, batch=2, seed=5, impl="reference"
     )
     np.testing.assert_allclose(
         res_str["err_ekf_slam"], res_scan["err_ekf_slam"], atol=5e-3
@@ -653,7 +653,7 @@ def test_streams_path_matches_scan_path_iekf():
         cfg, key, batch=2, seed=5, collect="poses"
     )
     res_str, _, _ = run_monte_carlo_pg_streams(
-        cfg, key, batch=2, seed=5, block_worlds=2
+        cfg, key, batch=2, seed=5, impl="reference"
     )
     np.testing.assert_allclose(
         res_str["err_iekf_slam"], res_scan["err_iekf_slam"], atol=5e-3

@@ -67,7 +67,7 @@ def test_ukf_slam_trajectory_parity(compat):
 
 
 def test_ukf_slam_long_horizon_parity():
-    """T=200 / N_CAP=20 vs the float64 oracle (VERDICT r4 weak #7): catches
+    """T=200 / N_CAP=20 vs the float64 oracle: catches
     slow-accumulating sigma-point drift (sqrt-cov regeneration, nearestSPD
     clamping, insertion ordering at full capacity) that the 25-tick test
     above cannot. Asserts bounded x/P drift AND exact padded-slot inertness
