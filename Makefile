@@ -2,7 +2,7 @@
 # in tests/conftest.py, with a virtual 8-device mesh). The GPU targets need a
 # CUDA GPU (nvcc under $CUDA_HOME or /usr/local/cuda builds the kernel).
 
-.PHONY: test test-quick test-gpu native smoke smoke-four bench bench-plain bench-xla bench-iekf matrix parity artifacts consistency demo dryrun clean
+.PHONY: test test-quick test-gpu native smoke smoke-four bench bench-xla bench-iekf matrix parity artifacts consistency demo dryrun clean
 
 test:
 	python -m pytest tests/ -q
@@ -24,9 +24,6 @@ smoke-four:     ## the world-parallel path on four GPUs
 
 bench:          ## headline EKF benchmark, CUDA kernel (GPU; one JSON line)
 	python bench.py
-
-bench-plain:    ## the same rollout in plain JAX (GPU)
-	BENCH_IMPL=plain python bench.py
 
 bench-xla:      ## the models/ vmap(scan) path (GPU)
 	BENCH_IMPL=xla python bench.py

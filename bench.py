@@ -6,9 +6,8 @@ Configuration: the reference's own benchmark setting (params.yaml:14-15,
 window is the whole rollout, noise generation included, ended by
 block_until_ready: one warm-up run, then the median of BENCH_REPS runs.
 
-    BENCH_IMPL    kernel (default; ops/ekf_rollout.cu) | plain (the same
-                  algebra in jnp, ops/fused_rollout.reference_ekf_rollout)
-                  | xla (the models/ vmap(scan) path, eval/runner.py)
+    BENCH_IMPL    kernel (default; ops/ekf_rollout.cu) | xla (the models/
+                  vmap(scan) path, eval/runner.py)
     BENCH_FILTER  ekf_slam (default) | iekf_slam | ukf_slam / ukf_loc /
                   naive (xla only) | closed_loop (igvc closed loop)
     BENCH_WORLDS, BENCH_STEPS, BENCH_REPS
@@ -141,9 +140,9 @@ def rollout_bench(filt, impl, batch, t_total, reps, device):
     from live_ekf_slam_tpu.sim import maps as sim_maps
     from live_ekf_slam_tpu.sim.trajectory import generate_trajectory
 
-    if impl not in ("kernel", "plain", "xla"):
-        raise SystemExit(f"BENCH_IMPL={impl}: use kernel, plain or xla")
-    if impl != "xla" and filt not in ("ekf_slam", "iekf_slam"):
+    if impl not in ("kernel", "xla"):
+        raise SystemExit(f"BENCH_IMPL={impl}: use kernel or xla")
+    if impl == "kernel" and filt not in ("ekf_slam", "iekf_slam"):
         raise SystemExit(
             f"BENCH_FILTER={filt} has no fused rollout; set BENCH_IMPL=xla"
         )
@@ -173,14 +172,13 @@ def rollout_bench(filt, impl, batch, t_total, reps, device):
     else:
         from live_ekf_slam_tpu.ops import fused_rollout as fr
 
-        fn = fr.fused_ekf_rollout if impl == "kernel" else \
-            fr.reference_ekf_rollout
         kind = "iekf" if filt == "iekf_slam" else "ekf"
 
         @jax.jit
         def rollout(key):
             noise = fr.rollout_noise(key, batch, t_total, n_lm)
-            return fn(cfg, lms, cmds, noise, filter_kind=kind)["err_sum"]
+            return fr.fused_ekf_rollout(cfg, lms, cmds, noise,
+                                        filter_kind=kind)["err_sum"]
 
     times, warm, err = time_runs(
         lambda i: rollout(jax.random.PRNGKey(100 + i)), reps)

@@ -23,20 +23,43 @@
 //
 // Noise is injected: noise[b, t, :] = (u_d, u_h, u_r[0..N), u_b[0..N)) in
 // [-1, 1), the same draws the reference and the closed-form sim consume.
+//
+// Host build (interpret mode): compiled by a C++ compiler instead of nvcc,
+// the same source runs with a warp of one lane and one world per block, so
+// every lane loop runs serially and the barriers are no-ops. It checks the
+// kernel's algebra and indexing on the CPU; the lane parallelism, barrier
+// placement and shared-memory sizing are exercised only on the GPU.
 
 #include <cstdint>
 #include <cmath>
 #include <string>
-
-#include <cuda_runtime.h>
+#include <vector>
 
 #include "xla/ffi/api/ffi.h"
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#else
+#define __host__
+#define __device__
+#define __forceinline__ inline
+struct float2 {
+  float x, y;
+};
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline void __syncwarp() {}
+inline void __syncthreads() {}
+#endif
 
 namespace ffi = xla::ffi;
 
 namespace {
 
+#ifdef __CUDACC__
 constexpr int kWarp = 32;
+#else
+constexpr int kWarp = 1;
+#endif
 constexpr int kMaxWorldsPerBlock = 4;
 constexpr int kMaxSmem = 227 * 1024;
 constexpr float kTwoPi = 6.283185307179586f;
@@ -107,34 +130,41 @@ __host__ __device__ inline int table_words(int n) {
   return align2(d * (d + 1) / 2);
 }
 
-__global__ void __launch_bounds__(kWarp * kMaxWorldsPerBlock, 8)
-rollout_kernel(const float* __restrict__ params,
-               const float* __restrict__ lms,
-               const float* __restrict__ cmds,
-               const float* __restrict__ noise,
-               int B, int T, int N, int wpb,
-               float* __restrict__ stats, float* __restrict__ x_out,
-               float* __restrict__ p_out, float* __restrict__ seen_out,
-               float* __restrict__ traj) {
-  extern __shared__ __align__(16) float smem[];
+// Result pointers of one rollout; traj is null unless emit_traj.
+struct Outputs {
+  float* stats;
+  float* x;
+  float* p;
+  float* seen;
+  float* traj;
+};
+
+// One block's share of the rollout: thread `tid` of `nthreads` in block
+// `block`, with `smem` the block's shared memory.
+__device__ void rollout_block(float* smem, int tid, int nthreads, int block,
+                              const float* __restrict__ params,
+                              const float* __restrict__ lms,
+                              const float* __restrict__ cmds,
+                              const float* __restrict__ noise,
+                              int B, int T, int N, int wpb, Outputs out) {
   const int D = 3 + 2 * N;
   const int ntri = D * (D + 1) / 2;
   const int K = 2 + 2 * N;
   uint32_t* tab = reinterpret_cast<uint32_t*>(smem);
   float* prm = smem + table_words(N);
 
-  for (int e = threadIdx.x; e < ntri; e += blockDim.x) {
+  for (int e = tid; e < ntri; e += nthreads) {
     int a = static_cast<int>((sqrtf(8.0f * e + 1.0f) - 1.0f) * 0.5f);
     while (tri(a + 1) <= e) ++a;
     while (tri(a) > e) --a;
     tab[e] = (static_cast<uint32_t>(a) << 16) | static_cast<uint32_t>(e - tri(a));
   }
-  for (int i = threadIdx.x; i < kNumParams; i += blockDim.x) prm[i] = params[i];
+  for (int i = tid; i < kNumParams; i += nthreads) prm[i] = params[i];
   __syncthreads();
 
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int w = blockIdx.x * wpb + warp;
+  const int warp = tid / kWarp;
+  const int lane = tid % kWarp;
+  const int w = block * wpb + warp;
   if (w >= B) return;  // no block-wide barrier follows
 
   float* base = prm + kParamSlots + warp * world_floats(N);
@@ -478,9 +508,10 @@ rollout_kernel(const float* __restrict__ params,
     float ex = s.x[0] - tx, ey = s.x[1] - ty;
     float e = sqrtf(ex * ex + ey * ey);
     err_sum += e;
-    err_max = (isnan(err_max) || isnan(e)) ? NAN : fmaxf(err_max, e);
-    if (traj != nullptr && lane == 0) {
-      float* o = traj + wt * 6;
+    // NaN-propagating running max (NaN is the only value unequal to itself)
+    err_max = (err_max != err_max || e != e) ? NAN : fmaxf(err_max, e);
+    if (out.traj != nullptr && lane == 0) {
+      float* o = out.traj + wt * 6;
       o[0] = s.x[0];
       o[1] = s.x[1];
       o[2] = s.x[2];
@@ -492,24 +523,27 @@ rollout_kernel(const float* __restrict__ params,
   __syncwarp();
 
   if (lane == 0) {
-    float* st = stats + static_cast<size_t>(w) * 5;
+    float* st = out.stats + static_cast<size_t>(w) * 5;
     st[0] = err_sum;
     st[1] = err_max;
     st[2] = tx;
     st[3] = ty;
     st[4] = tth;
   }
-  for (int a = lane; a < D; a += kWarp) x_out[static_cast<size_t>(w) * D + a] = s.x[a];
+  for (int a = lane; a < D; a += kWarp) out.x[static_cast<size_t>(w) * D + a] = s.x[a];
   for (int e = lane; e < D * D; e += kWarp) {
-    p_out[static_cast<size_t>(w) * D * D + e] = s.P[pidx(e / D, e % D)];
+    out.p[static_cast<size_t>(w) * D * D + e] = s.P[pidx(e / D, e % D)];
   }
-  for (int j = lane; j < N; j += kWarp) seen_out[static_cast<size_t>(w) * N + j] = s.seen[j];
+  for (int j = lane; j < N; j += kWarp) out.seen[static_cast<size_t>(w) * N + j] = s.seen[j];
 }
 
-ffi::Error Launch(cudaStream_t stream, ffi::Buffer<ffi::F32> params,
-                  ffi::Buffer<ffi::F32> lms, ffi::Buffer<ffi::F32> cmds,
-                  ffi::Buffer<ffi::F32> noise, float* stats, float* x_out,
-                  float* p_out, float* seen_out, float* traj) {
+struct Dims {
+  int B, T, N;
+};
+
+ffi::Error CheckDims(ffi::Buffer<ffi::F32>& params, ffi::Buffer<ffi::F32>& lms,
+                     ffi::Buffer<ffi::F32>& cmds, ffi::Buffer<ffi::F32>& noise,
+                     Dims* dims) {
   auto ld = lms.dimensions();
   auto cd = cmds.dimensions();
   auto nd = noise.dimensions();
@@ -526,6 +560,30 @@ ffi::Error Launch(cudaStream_t stream, ffi::Buffer<ffi::F32> params,
   if (params.element_count() != kNumParams) {
     return ffi::Error::InvalidArgument("wrong number of kernel params");
   }
+  *dims = {B, T, N};
+  return ffi::Error::Success();
+}
+
+#ifdef __CUDACC__
+
+__global__ void __launch_bounds__(kWarp * kMaxWorldsPerBlock, 8)
+rollout_kernel(const float* __restrict__ params,
+               const float* __restrict__ lms,
+               const float* __restrict__ cmds,
+               const float* __restrict__ noise,
+               int B, int T, int N, int wpb, Outputs out) {
+  extern __shared__ __align__(16) float smem[];
+  rollout_block(smem, threadIdx.x, blockDim.x, blockIdx.x, params, lms, cmds,
+                noise, B, T, N, wpb, out);
+}
+
+ffi::Error Launch(cudaStream_t stream, ffi::Buffer<ffi::F32> params,
+                  ffi::Buffer<ffi::F32> lms, ffi::Buffer<ffi::F32> cmds,
+                  ffi::Buffer<ffi::F32> noise, Outputs out) {
+  Dims dm;
+  ffi::Error bad = CheckDims(params, lms, cmds, noise, &dm);
+  if (bad.failure()) return bad;
+  const int B = dm.B, T = dm.T, N = dm.N;
   if (B == 0 || T == 0) return ffi::Error::Success();
   const size_t fixed = sizeof(float) * (table_words(N) + kParamSlots);
   const size_t per_world = sizeof(float) * world_floats(N);
@@ -543,7 +601,7 @@ ffi::Error Launch(cudaStream_t stream, ffi::Buffer<ffi::F32> params,
   const int grid = (B + wpb - 1) / wpb;
   rollout_kernel<<<grid, kWarp * wpb, smem, stream>>>(
       params.typed_data(), lms.typed_data(), cmds.typed_data(),
-      noise.typed_data(), B, T, N, wpb, stats, x_out, p_out, seen_out, traj);
+      noise.typed_data(), B, T, N, wpb, out);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) {
     return ffi::Error::Internal(std::string("rollout launch failed: ") +
@@ -552,19 +610,46 @@ ffi::Error Launch(cudaStream_t stream, ffi::Buffer<ffi::F32> params,
   return ffi::Error::Success();
 }
 
-ffi::Error Rollout(cudaStream_t stream, ffi::Buffer<ffi::F32> params,
+#define STREAM_PARAM cudaStream_t stream,
+#define STREAM_ARG stream,
+#define BIND_CTX .Ctx<ffi::PlatformStream<cudaStream_t>>()
+
+#else  // host build: one lane per warp, one world per block, in turn
+
+ffi::Error Launch(ffi::Buffer<ffi::F32> params, ffi::Buffer<ffi::F32> lms,
+                  ffi::Buffer<ffi::F32> cmds, ffi::Buffer<ffi::F32> noise,
+                  Outputs out) {
+  Dims dm;
+  ffi::Error bad = CheckDims(params, lms, cmds, noise, &dm);
+  if (bad.failure()) return bad;
+  std::vector<float> smem(table_words(dm.N) + kParamSlots + world_floats(dm.N));
+  for (int w = 0; w < dm.B; ++w) {
+    rollout_block(smem.data(), 0, 1, w, params.typed_data(), lms.typed_data(),
+                  cmds.typed_data(), noise.typed_data(), dm.B, dm.T, dm.N, 1,
+                  out);
+  }
+  return ffi::Error::Success();
+}
+
+#define STREAM_PARAM
+#define STREAM_ARG
+#define BIND_CTX
+
+#endif  // __CUDACC__
+
+ffi::Error Rollout(STREAM_PARAM ffi::Buffer<ffi::F32> params,
                    ffi::Buffer<ffi::F32> lms, ffi::Buffer<ffi::F32> cmds,
                    ffi::Buffer<ffi::F32> noise,
                    ffi::ResultBuffer<ffi::F32> stats,
                    ffi::ResultBuffer<ffi::F32> x_out,
                    ffi::ResultBuffer<ffi::F32> p_out,
                    ffi::ResultBuffer<ffi::F32> seen_out) {
-  return Launch(stream, params, lms, cmds, noise, stats->typed_data(),
-                x_out->typed_data(), p_out->typed_data(),
-                seen_out->typed_data(), nullptr);
+  return Launch(STREAM_ARG params, lms, cmds, noise,
+                {stats->typed_data(), x_out->typed_data(), p_out->typed_data(),
+                 seen_out->typed_data(), nullptr});
 }
 
-ffi::Error RolloutTraj(cudaStream_t stream, ffi::Buffer<ffi::F32> params,
+ffi::Error RolloutTraj(STREAM_PARAM ffi::Buffer<ffi::F32> params,
                        ffi::Buffer<ffi::F32> lms, ffi::Buffer<ffi::F32> cmds,
                        ffi::Buffer<ffi::F32> noise,
                        ffi::ResultBuffer<ffi::F32> stats,
@@ -572,16 +657,16 @@ ffi::Error RolloutTraj(cudaStream_t stream, ffi::Buffer<ffi::F32> params,
                        ffi::ResultBuffer<ffi::F32> p_out,
                        ffi::ResultBuffer<ffi::F32> seen_out,
                        ffi::ResultBuffer<ffi::F32> traj) {
-  return Launch(stream, params, lms, cmds, noise, stats->typed_data(),
-                x_out->typed_data(), p_out->typed_data(),
-                seen_out->typed_data(), traj->typed_data());
+  return Launch(STREAM_ARG params, lms, cmds, noise,
+                {stats->typed_data(), x_out->typed_data(), p_out->typed_data(),
+                 seen_out->typed_data(), traj->typed_data()});
 }
 
 }  // namespace
 
 #define ROLLOUT_ARGS                                      \
   ffi::Ffi::Bind()                                        \
-      .Ctx<ffi::PlatformStream<cudaStream_t>>()           \
+      BIND_CTX                                            \
       .Arg<ffi::Buffer<ffi::F32>>()                       \
       .Arg<ffi::Buffer<ffi::F32>>()                       \
       .Arg<ffi::Buffer<ffi::F32>>()                       \

@@ -5,8 +5,9 @@ Two implementations of one algorithm, kept side by side:
 * ``fused_ekf_rollout``: a CUDA kernel for Hopper (ops/ekf_rollout.cu),
   called through ``jax.ffi``. One warp owns one world for all T ticks and
   keeps its covariance in shared memory, so device memory carries only the
-  command and noise streams in and the final state out. It runs only on a
-  CUDA GPU; there is no interpret mode.
+  command and noise streams in and the final state out. It runs on a CUDA
+  GPU; ``interpret=True`` runs the same source built for the CPU instead,
+  which is how the CPU tests check the kernel's algebra.
 * ``reference_ekf_rollout``: the same per-tick algebra in plain ``jnp``,
   ``vmap`` over worlds and ``lax.scan`` over T. XLA compiles it for any
   backend. The CPU tests hold it to the float64 oracle, and the GPU check
@@ -431,7 +432,12 @@ _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-_TARGETS = ("les_ekf_rollout", "les_ekf_rollout_traj")
+# the host build (interpret mode): the same source as C++ for the CPU
+_CXX_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC")
+_TARGETS = {
+    False: ("les_ekf_rollout", "les_ekf_rollout_traj"),
+    True: ("les_ekf_rollout_host", "les_ekf_rollout_traj_host"),
+}
 
 
 def _nvcc() -> str:
@@ -447,35 +453,49 @@ def _nvcc() -> str:
     return found
 
 
-def build_kernel_library() -> Path:
+def _cxx() -> str:
+    found = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if found is None:
+        raise RuntimeError(
+            "no C++ compiler found (set CXX): interpret mode builds "
+            f"{_SRC.name} for the host at first use"
+        )
+    return found
+
+
+def build_kernel_library(host: bool = False) -> Path:
     """Compile ops/ekf_rollout.cu once per source version; returns the .so.
 
-    The file name carries a hash of the source and flags, so an edited
-    kernel is rebuilt and a stale library is never loaded.
+    host=False builds the CUDA kernel with nvcc; host=True builds the same
+    source with the C++ compiler for interpret mode. The file name carries
+    a hash of the source and flags, so an edited kernel is rebuilt and a
+    stale library is never loaded.
     """
+    flags = _CXX_FLAGS if host else _NVCC_FLAGS
     tag = hashlib.sha256(
-        _SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()
+        _SRC.read_bytes() + " ".join(flags).encode()
     ).hexdigest()[:16]
-    lib = _BUILD_DIR / f"libekf_rollout_{tag}.so"
+    kind = "host" if host else "sm90a"
+    lib = _BUILD_DIR / f"libekf_rollout_{kind}_{tag}.so"
     if lib.exists():
         return lib
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(lib.name + f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-I", jax.ffi.include_dir(),
+    cmd = [_cxx() if host else _nvcc(), *flags, "-I", jax.ffi.include_dir(),
            "-o", str(tmp), str(_SRC)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stderr[-4000:]}")
+        raise RuntimeError(f"{cmd[0]} failed:\n{proc.stderr[-4000:]}")
     os.replace(tmp, lib)
     return lib
 
 
 @functools.cache
-def _register_kernel() -> None:
-    lib = ctypes.cdll.LoadLibrary(str(build_kernel_library()))
-    for name, sym in zip(_TARGETS, (lib.EkfRollout, lib.EkfRolloutTraj)):
+def _register_kernel(host: bool) -> None:
+    lib = ctypes.cdll.LoadLibrary(str(build_kernel_library(host)))
+    for name, sym in zip(_TARGETS[host], (lib.EkfRollout, lib.EkfRolloutTraj)):
         jax.ffi.register_ffi_target(
-            name, jax.ffi.pycapsule(sym), platform="CUDA"
+            name, jax.ffi.pycapsule(sym), platform="cpu" if host else "CUDA"
         )
 
 
@@ -485,21 +505,33 @@ def kernel_params(cfg: Config, filter_kind: str = "ekf") -> np.ndarray:
 
 
 @functools.partial(
-    jax.jit, static_argnames=("cfg", "emit_traj", "filter_kind")
+    jax.jit, static_argnames=("cfg", "emit_traj", "filter_kind", "interpret")
 )
 def fused_ekf_rollout(cfg: Config, landmarks, cmds, noise,
-                      emit_traj: bool = False, filter_kind: str = "ekf"):
+                      emit_traj: bool = False, filter_kind: str = "ekf",
+                      interpret: bool = False):
     """The rollout as one CUDA kernel launch; same contract as
-    ``reference_ekf_rollout``. Raises off a CUDA GPU."""
+    ``reference_ekf_rollout``. Raises off a CUDA GPU.
+
+    interpret=True runs the kernel's host build instead (the same source
+    compiled for the CPU, one lane per warp; see ops/ekf_rollout.cu), on
+    the CPU backend only. Tests use it; nothing else should.
+    """
     _check_inputs(cfg, landmarks, cmds, noise, filter_kind)
     platform = jax.default_backend()
-    if platform != "gpu":
+    if interpret and platform != "cpu":
+        raise RuntimeError(
+            "interpret=True runs the kernel's host build and needs the CPU "
+            f"backend; this process runs on {platform!r}"
+        )
+    if not interpret and platform != "gpu":
         raise RuntimeError(
             "fused_ekf_rollout is a CUDA kernel and needs a GPU backend; "
-            f"this process runs on {platform!r} (reference_ekf_rollout is "
-            "the same algebra in plain JAX)"
+            f"this process runs on {platform!r} (interpret=True runs its "
+            "host build; reference_ekf_rollout is the same algebra in plain "
+            "JAX)"
         )
-    _register_kernel()
+    _register_kernel(interpret)
     b, n_lm, _ = landmarks.shape
     t_total = cmds.shape[1]
     d = 3 + 2 * n_lm
@@ -512,7 +544,7 @@ def fused_ekf_rollout(cfg: Config, landmarks, cmds, noise,
     ]
     if emit_traj:
         out_types.append(jax.ShapeDtypeStruct((b, t_total, 6), f32))
-    outs = jax.ffi.ffi_call(_TARGETS[int(emit_traj)], out_types)(
+    outs = jax.ffi.ffi_call(_TARGETS[interpret][int(emit_traj)], out_types)(
         jnp.asarray(kernel_params(cfg, filter_kind)),
         jnp.asarray(landmarks, f32),
         jnp.asarray(cmds, f32),

@@ -80,15 +80,24 @@ def pytest_collection_modifyitems(config, items):
 
 @pytest.fixture(params=[
     pytest.param("reference"),
+    pytest.param("interpret"),
     pytest.param("kernel", marks=pytest.mark.gpu),
 ])
 def rollout(request):
     """The fused-rollout implementation under test: the plain-JAX reference
-    everywhere, the CUDA kernel only where the backend is a GPU."""
+    everywhere, the kernel's host build (interpret mode) on the CPU backend,
+    the CUDA kernel only where the backend is a GPU."""
+    import functools
+
     from live_ekf_slam_tpu.ops import fused_rollout as fr
 
+    backend = jax.default_backend()
     if request.param == "reference":
         return fr.reference_ekf_rollout
-    if jax.default_backend() != "gpu":
-        pytest.skip("CUDA kernel: needs a GPU backend (no interpret mode)")
+    if request.param == "interpret":
+        if backend != "cpu":
+            pytest.skip("the kernel's host build runs on the CPU backend")
+        return functools.partial(fr.fused_ekf_rollout, interpret=True)
+    if backend != "gpu":
+        pytest.skip("CUDA kernel: needs a GPU backend")
     return fr.fused_ekf_rollout

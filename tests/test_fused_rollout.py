@@ -5,8 +5,9 @@ Both are replayed with an injected noise array through a numpy float64
 simulation + the reference-equation EKF oracle. Kernel landmark slots are
 pinned to ids; the oracle's discovery-order state is compared through the
 id permutation (the EKF is permutation-equivariant). The ``rollout``
-fixture (conftest.py) runs each such test on the reference everywhere and
-on the kernel where a GPU is present (marker ``gpu``).
+fixture (conftest.py) runs each such test on the reference everywhere, on
+the kernel's host build (``interpret=True``) on the CPU, and on the CUDA
+kernel where a GPU is present (marker ``gpu``).
 """
 
 import math
@@ -238,13 +239,15 @@ def test_rollout_rejects_bad_inputs():
 
 
 def test_kernel_raises_without_gpu():
-    """The kernel has no interpret mode: off a GPU it refuses to run rather
-    than fall back to anything."""
+    """Off a GPU the kernel refuses to run unless the caller asked for
+    interpret mode; it never falls back on its own."""
     if jax.default_backend() == "gpu":
         pytest.skip("checks the behaviour off a GPU")
     cfg, lms, cmds, noise = _setup(b=2)
     with pytest.raises(RuntimeError, match="needs a GPU backend"):
         fr.fused_ekf_rollout(cfg, lms, cmds, noise)
+    out = fr.fused_ekf_rollout(cfg, lms, cmds, noise, interpret=True)
+    assert np.isfinite(np.asarray(out["err_sum"])).all()
 
 
 def test_kernel_params_match_cuda_layout():

@@ -160,7 +160,7 @@ def test_bench_refuses_cpu_and_ukf_kernel():
     spec.loader.exec_module(bench)
     with pytest.raises(SystemExit, match="no fused rollout"):
         bench.rollout_bench("ukf_slam", "kernel", 2, 4, 1, {})
-    with pytest.raises(SystemExit, match="use kernel, plain or xla"):
+    with pytest.raises(SystemExit, match="use kernel or xla"):
         bench.rollout_bench("ekf_slam", "pallas", 2, 4, 1, {})
     if jax.default_backend() != "gpu":
         with pytest.raises(SystemExit, match="measures the GPU"):
